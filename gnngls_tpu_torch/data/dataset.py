@@ -1,0 +1,86 @@
+"""Array-resident TSP splits (gnngls_tpu/data/dataset.py, eval side).
+
+A split is dense arrays over a leading instance axis; every instance shares
+the one static K_n topology.  Reading the reference's networkx pickles
+(`from_reference_dir`) waits for the reference-API slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+
+from ..core.graph import build_topology
+from ..core.scaler import MinMaxScaler, load_scalers
+from .generate import coords_to_distance_matrix, load_dataset
+
+
+def edge_features(coords: np.ndarray) -> np.ndarray:
+    """(..., n, 2) coords -> (..., E, 1) features (the edge weight)."""
+    topo = build_topology(coords.shape[-2])
+    D = coords_to_distance_matrix(coords)
+    w = D[..., topo.edges[:, 0], topo.edges[:, 1]]
+    return w[..., None].astype(np.float32)
+
+
+@dataclass
+class TSPDataset:
+    coords: np.ndarray  # (N, n, 2)
+    features: np.ndarray  # (N, E, F) unscaled
+    regret: np.ndarray  # (N, E) unscaled
+    in_solution: np.ndarray  # (N, E) bool
+    opt_cost: np.ndarray  # (N,)
+    scalers: Dict[str, MinMaxScaler] = field(default_factory=dict)
+    feat_drop_idx: List[int] = field(default_factory=list)
+
+    def __len__(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.coords.shape[1]
+
+    @property
+    def feat_dim(self) -> int:
+        return self.features.shape[-1] - len(self.feat_drop_idx)
+
+    def get_scaled_batch(self, idx) -> dict:
+        """Slice and min-max scale a batch, dropping `feat_drop_idx` columns."""
+        idx = np.asarray(idx)
+        x = self.scalers["features"].transform(self.features[idx]).astype(np.float32)
+        if self.feat_drop_idx:
+            x = np.delete(x, self.feat_drop_idx, axis=-1)
+        y = self.scalers["regret"].transform(
+            self.regret[idx][..., None]).astype(np.float32)
+        return {
+            "features": x,
+            "regret": y,
+            "regret_unscaled": self.regret[idx][..., None].astype(np.float32),
+            "in_solution": self.in_solution[idx][..., None].astype(np.float32),
+            "coords": self.coords[idx],
+            "opt_cost": self.opt_cost[idx],
+        }
+
+    @classmethod
+    def from_npz(cls, npz_path, split_file=None, scalers_file=None,
+                 feat_drop_idx=()) -> "TSPDataset":
+        """An .npz shard; `split_file` holds 0-based row indices, one a line."""
+        data = load_dataset(npz_path)
+        idx = np.arange(data["coords"].shape[0])
+        if split_file is not None:
+            idx = np.loadtxt(split_file, dtype=np.int64, ndmin=1)
+        coords = data["coords"][idx]
+        return cls(coords=coords, features=edge_features(coords),
+                   regret=np.asarray(data["regret"])[idx],
+                   in_solution=np.asarray(data["in_solution"])[idx],
+                   opt_cost=np.asarray(data["opt_cost"])[idx],
+                   scalers=load_scalers(scalers_file) if scalers_file else {},
+                   feat_drop_idx=list(feat_drop_idx))
+
+    @classmethod
+    def from_reference_dir(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "reading reference networkx pickles waits for the reference-API "
+            "slice of the port; use an instances.npz with a split file")

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+Every `.cu` file under `csrc/` exposes a plain `extern "C"` launcher that
+returns `cudaError_t`.  At the first CUDA use, one `nvcc` call compiles all of
+them into one shared library for sm_90a under `build/gnngls_tpu_torch/` (next
+to the package), named by a hash of the sources and flags, and `ctypes`
+loads it.  No source includes PyTorch's headers, so the build takes seconds.
+
+`-fmad=false` keeps nvcc from contracting a multiply and an add into one FMA:
+the whole-GLS kernel must round `D + k*P` exactly as its plain twin does, or
+accept decisions flip.  The GAT kernel asks for its FMAs explicitly.
+
+`launches` counts kernel launches by name; a wrapper adds one exactly where it
+launches its kernel, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("gat_group.cu", "gls_whole.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launches.clear()
+
+
+def build_dir() -> pathlib.Path:
+    return CSRC.parent.parent / "build" / "gnngls_tpu_torch"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in SOURCES:
+        h.update((CSRC / s).read_bytes())
+    return build_dir() / f"libgnngls_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless this exact build exists; return the path.
+
+    Raises with nvcc's stderr when the build fails.  The ptxas report
+    (registers, shared memory, spills) is kept beside the library as .log.
+    """
+    out = _library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.gat_group_launch.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, I, P]
+    lib.gat_group_launch.restype = I
+    lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I,
+                                     P, P, P, P, P, P, I, P]
+    lib.gls_whole_launch.restype = I
+    lib.gls_whole_max_n.argtypes = []
+    lib.gls_whole_max_n.restype = I
+    lib.gnngls_cuda_error_string.argtypes = [I]
+    lib.gnngls_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launcher reports a CUDA error (refused or faulted launch)."""
+    if err != 0:
+        msg = library().gnngls_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

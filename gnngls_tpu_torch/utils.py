@@ -1,0 +1,20 @@
+"""Host-side tour utilities (numpy), as in gnngls_tpu/utils/__init__.py."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def tour_cost(D: np.ndarray, tour) -> float:
+    """Cost of a closed tour (depot-to-depot node list) under matrix D."""
+    t = np.asarray(tour)
+    return float(D[t[:-1], t[1:]].sum())
+
+
+def is_valid_tour(n: int, tour) -> bool:
+    """Starts and ends at depot 0, the depot twice, every other node once."""
+    t = list(np.asarray(tour).tolist())
+    if len(t) != n + 1 or t[0] != 0 or t[-1] != 0:
+        return False
+    counts = np.bincount(np.asarray(t), minlength=n)
+    return counts[0] == 2 and bool((counts[1:] == 1).all()) and len(counts) == n

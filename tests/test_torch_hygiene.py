@@ -1,0 +1,96 @@
+"""The port stands alone: no jax, no gnngls_tpu, CUDA by default.
+
+* Importing every module of gnngls_tpu_torch and chip_smoke.py leaves jax,
+  gnngls_tpu, pandas, networkx and matplotlib out of sys.modules (checked in
+  a fresh interpreter, against the modules present before the imports).
+* Without a card the entry points raise unless device="cpu" is asked for.
+* Modes the slice does not port raise NotImplementedError.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gnngls_tpu_torch import evaluate as tev
+from gnngls_tpu_torch.data import dataset as tds
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several test workers share the CPU: keep torch to one thread each."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+before = set(sys.modules)
+sys.path.insert(0, {root!r})
+import chip_smoke, gnngls_tpu_torch
+for m in pkgutil.walk_packages(gnngls_tpu_torch.__path__, "gnngls_tpu_torch."):
+    importlib.import_module(m.name)
+new = set(sys.modules) - before
+bad = sorted(m for m in new if m.split(".")[0] in
+             ("jax", "jaxlib", "gnngls_tpu", "pandas", "networkx", "matplotlib"))
+print("BAD", bad)
+print("COUNT", sum(m.startswith("gnngls_tpu_torch") for m in new))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    count = int(proc.stdout.split("COUNT")[1])
+    assert count >= 20
+
+
+def _tiny():
+    root = ROOT / "data" / "tsp10"
+    ds = tds.TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
+                                 scalers_file=root / "scalers.json")
+    ds.coords = ds.coords[:2]
+    ds.opt_cost = ds.opt_cost[:2]
+    return ds
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tev.evaluate(_tiny(), guides=["weight"], n_iters=1)
+    with pytest.raises(RuntimeError):
+        tev.resolve_device("cuda")
+    out = tev.evaluate(_tiny(), guides=["weight"], n_iters=1, device="cpu")
+    assert out["device"] == "cpu" and np.isfinite(out["mean_gap"])
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError):
+        tev.evaluate(_tiny(), guides=["weight"], time_limit=1.0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tev.evaluate(_tiny(), guides=["weight"], n_iters=1, first_improvement=True,
+                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        tds.TSPDataset.from_reference_dir(ROOT / "data" / "tsp10" / "test.txt")
+    with pytest.raises(ValueError):
+        tev.evaluate(_tiny(), guides=["regret_pred"], n_iters=1, device="cpu")
+
+
+def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
+    """No result line without a card, nor from a directory holding only the script."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                              timeout=120, cwd=script.parent)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -4,14 +4,18 @@ The same GNN-guided local search for the TSP as the JAX package beside it,
 written for one NVIDIA H100 (sm_90a).  The main path is the reference's
 evaluation pipeline (`cli/test.py` -> `evaluate.evaluate`): an 8-layer GAT
 over the K_n line graph predicts per-edge regret, and a fixed-budget Guided
-Local Search consumes it.  Its two hot spots are CUDA kernels written by hand
-(`csrc/gat_group.cu`, `csrc/gls_whole.cu`), each with a plain PyTorch twin in
-the same module that runs whenever the tensors lie on the CPU.
+Local Search consumes it.  Its hot spots are CUDA kernels written by hand,
+each with a plain PyTorch twin in the same module that runs whenever the
+tensors lie on the CPU: the GAT group partials, one-shot
+(`csrc/gat_group.cu`) or with sources in chunks for large n
+(`csrc/gat_group_chunked.cu`), and the whole GLS (`csrc/gls_whole.cu`), whose
+state lives in shared memory up to n=138 and in global memory up to n=1024.
 
 Subpackages:
   core     static K_n line-graph topology, feature scalers
-  data     distance matrices, npz datasets with split files
-  ops      linear, batch norm, GAT (plain paths and the group kernel)
+  data     instance generation with the GLS oracle, npz datasets with split
+           files
+  ops      linear, batch norm, GAT (plain paths and the group kernels)
   models   the edge-regret model (nn.Module) and weight conversion
   search   move semantics, nearest neighbour, the whole-GLS kernel and twin
   train    the checkpoint reader

@@ -20,7 +20,12 @@ class LineGraphTopology(NamedTuple):
     city_edges: np.ndarray  # (n, n-1) int32 edge ids of S_u
     slot_u: np.ndarray  # (E,) slot of edge (u, v) in the u-group: u*(n-1) + v-1
     slot_v: np.ndarray  # (E,) slot in the v-group: v*(n-1) + u
-    nbr: np.ndarray  # (E, 2(n-2)) explicit neighbour lists, for the naive path
+
+    @property
+    def nbr(self) -> np.ndarray:
+        """(E, 2(n-2)) int32 explicit neighbour lists, for the naive path only.
+        Built on first use: at n=500 it is 0.5 GB (2 GB while it is built)."""
+        return _neighbour_lists(self.n)
 
 
 def n_edges(n: int) -> int:
@@ -33,6 +38,12 @@ def n_from_edges(E: int) -> int:
     if n_edges(n) != E:
         raise ValueError(f"{E} is not the edge count of a complete graph")
     return n
+
+
+def edge_index(n: int, u, v):
+    """Edge id of the pair (u, v) in the canonical order (vectorised)."""
+    u, v = np.minimum(u, v), np.maximum(u, v)
+    return u * (2 * n - u - 1) // 2 + (v - u - 1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -51,11 +62,18 @@ def build_topology(n: int) -> LineGraphTopology:
     city_edges = edge_id[np.arange(n)[:, None], others].astype(np.int32)
     slot_u = (us * (n - 1) + (vs - 1)).astype(np.int32)
     slot_v = (vs * (n - 1) + us).astype(np.int32)
-    su_all, sv_all = city_edges[us], city_edges[vs]
-    su = su_all[su_all != eids[:, None]].reshape(E, n - 2)
-    sv = sv_all[sv_all != eids[:, None]].reshape(E, n - 2)
-    nbr = np.concatenate([su, sv], axis=1).astype(np.int32)
-    return LineGraphTopology(n, E, edges, city_edges, slot_u, slot_v, nbr)
+    return LineGraphTopology(n, E, edges, city_edges, slot_u, slot_v)
+
+
+@functools.lru_cache(maxsize=8)
+def _neighbour_lists(n: int) -> np.ndarray:
+    topo = build_topology(n)
+    us, vs = topo.edges[:, 0], topo.edges[:, 1]
+    eids = np.arange(topo.n_edges, dtype=np.int32)
+    su_all, sv_all = topo.city_edges[us], topo.city_edges[vs]
+    su = su_all[su_all != eids[:, None]].reshape(topo.n_edges, n - 2)
+    sv = sv_all[sv_all != eids[:, None]].reshape(topo.n_edges, n - 2)
+    return np.concatenate([su, sv], axis=1).astype(np.int32)
 
 
 def edge_vector_to_matrix(x: np.ndarray, n: int, diag=0.0) -> np.ndarray:

@@ -8,10 +8,18 @@
 // expression is evaluated in the order of the plain twin
 // (gnngls_tpu_torch/search/local_search.py), so both give the same tours.
 //
-// Layout: one block of 256 threads per instance.  D, the city-space
-// penalties P and the current guide live in shared memory (3 n^2 floats:
-// 120 KB at n=100, so dynamic shared memory and one block per SM), with the
-// current tour, a scratch tour and the best tour.  Deltas are direct gathers
+// Layout: one block of 256 threads per instance, in one of two state
+// layouts chosen by the launcher (one kernel body, templated on it):
+//  * shared (n <= gls_whole_max_n(), 138 on sm_90): D, the city-space
+//    penalties P and the current guide live in shared memory (3 n^2 floats:
+//    120 KB at n=100, so one block per SM);
+//  * global (n <= kMaxN): D and the current guide are read from global
+//    memory where they lie, and P lives in a per-instance global workspace
+//    (B n^2 floats) that the caller zeroes before each launch.
+// In both, the current tour, a scratch tour, the best tour and the tree-sum
+// buffer (the next power of two >= n floats) stay in shared memory.  Only the
+// addresses differ: both layouts take the same f32 steps in the same order,
+// so they give the same bits.  Deltas are direct gathers
 // D[t[p], t[q]]; nothing is rebuilt per move (the TPU kernel's one-hot
 // P D P^T products and rolls were Mosaic workarounds).  Argmins and argmaxes
 // are block reductions on (value, row-major index), first occurrence wins.
@@ -24,7 +32,10 @@
 // ~1e5 operations per round, and the inputs are n^2 floats per matrix, so
 // the roofline bound (operations over 67 TFLOP/s, bytes over 3.35 TB/s) is
 // far below what the block's chain of dependent, synchronised steps takes:
-// latency of the serial search bounds it, not the card's rates.
+// latency of the serial search bounds it, not the card's rates.  In the
+// global layout every delta's gathers D[t[p] n + t[q]] go to L2 or HBM (at
+// n=500 each instance's D is 1 MB, and 128 instances do not fit L2), so the
+// latency of those gathers adds to it.
 //
 // Numerics: the guided weight is D + k*P rounded as multiply, round, add
 // (__fmul_rn / __fadd_rn, and the build passes -fmad=false): a contracted
@@ -39,12 +50,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSumCap = 256;  // tree-sum buffer: n <= 256
+constexpr int kMaxN = 1024;  // the global layout's range; search/gls_whole.py's MAX_N
 constexpr int kSmemCap = 232448;  // bytes a block may use on sm_90
 constexpr float kNegEps = -(float)(1e-8 / (1.0 - 1e-5));
 
-size_t smem_bytes(int n) {
-  const size_t floats = 3 * (size_t)n * n + kSumCap + (kWarps + 1);
+enum Layout { kShared = 0, kGlobal = 1 };
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+size_t smem_bytes(int n, bool global) {
+  const size_t mats = global ? 0 : 3 * (size_t)n * n;
+  const size_t floats = mats + pow2_at_least(n) + (kWarps + 1);
   const size_t ints = (kWarps + 1) + 3 * (size_t)(n + 1) + 1;
   return (floats + ints) * 4;
 }
@@ -101,7 +121,7 @@ struct Search {
     for (int q = threadIdx.x; q < p2; q += blockDim.x) buf[q] = q < n ? d(q, q + 1) : 0.f;
     __syncthreads();
     for (int s = p2 >> 1; s > 0; s >>= 1) {
-      if (threadIdx.x < s) buf[threadIdx.x] = __fadd_rn(buf[threadIdx.x], buf[threadIdx.x + s]);
+      for (int q = threadIdx.x; q < s; q += blockDim.x) buf[q] = __fadd_rn(buf[q], buf[q + s]);
       __syncthreads();
     }
     const float c = buf[0];
@@ -251,12 +271,14 @@ struct Search {
   }
 };
 
+template <Layout kLayout>
 __global__ void __launch_bounds__(kThreads)
 gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
                  const int* __restrict__ init, int n, int n_guides, int n_iters, int pm,
-                 int* __restrict__ best_out, float* __restrict__ best_cost_out,
-                 int* __restrict__ moves_out, float* __restrict__ trace_c,
-                 int* __restrict__ trace_m, int* __restrict__ work_out) {
+                 float* penalties, int* __restrict__ best_out,
+                 float* __restrict__ best_cost_out, int* __restrict__ moves_out,
+                 float* __restrict__ trace_c, int* __restrict__ trace_m,
+                 int* __restrict__ work_out) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, nt = n + 1, nn = n * n;
   Search s;
@@ -264,11 +286,15 @@ gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
   s.nt = nt;
   s.p2 = 1;
   while (s.p2 < n) s.p2 <<= 1;
-  s.D = smem;
-  s.P = s.D + nn;
-  s.G = s.P + nn;
-  s.buf = s.G + nn;
-  s.red_v = s.buf + kSumCap;
+  float* rest = smem;
+  if (kLayout == kShared) {
+    s.D = smem;
+    s.P = s.D + nn;
+    s.G = s.P + nn;
+    rest = s.G + nn;
+  }
+  s.buf = rest;
+  s.red_v = s.buf + s.p2;
   s.red_i = reinterpret_cast<int*>(s.red_v + kWarps + 1);
   s.t = s.red_i + kWarps + 1;
   s.tmp = s.t + nt;
@@ -277,10 +303,16 @@ gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
 
   const float* D = Ds + (size_t)b * nn;
   const float* Gb = guides + (size_t)b * n_guides * nn;
-  for (int x = threadIdx.x; x < nn; x += blockDim.x) {
-    s.D[x] = D[x];
-    s.P[x] = 0.f;
-    s.G[x] = Gb[x];
+  if (kLayout == kShared) {
+    for (int x = threadIdx.x; x < nn; x += blockDim.x) {
+      s.D[x] = D[x];
+      s.P[x] = 0.f;
+      s.G[x] = Gb[x];
+    }
+  } else {  // read in place; the caller zeroed this instance's penalties
+    s.D = const_cast<float*>(D);
+    s.P = penalties + (size_t)b * nn;
+    s.G = const_cast<float*>(Gb);
   }
   for (int p = threadIdx.x; p < nt; p += blockDim.x) s.t[p] = init[(size_t)b * nt + p];
   __syncthreads();
@@ -296,8 +328,12 @@ gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
   for (int it = 0; it < n_iters; ++it) {
     if (n_guides > 1) {
       const float* Gi = Gb + (size_t)(it % n_guides) * nn;
-      for (int x = threadIdx.x; x < nn; x += blockDim.x) s.G[x] = Gi[x];
-      __syncthreads();
+      if (kLayout == kShared) {
+        for (int x = threadIdx.x; x < nn; x += blockDim.x) s.G[x] = Gi[x];
+        __syncthreads();
+      } else {
+        s.G = const_cast<float*>(Gi);
+      }
     }
     s.perturbation(pm, cost, moves, pert_rounds);
     s.local_search(cost, moves, ls_rounds);
@@ -322,25 +358,35 @@ gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
 
 }  // namespace
 
+// Largest n whose whole state fits one block's shared memory (the shared layout).
 extern "C" int gls_whole_max_n() {
   int n = 3;
-  while (n < kSumCap && smem_bytes(n + 1) <= (size_t)kSmemCap) ++n;
+  while (smem_bytes(n + 1, false) <= (size_t)kSmemCap) ++n;
   return n;
 }
 
+// layout: 0 shared (n <= gls_whole_max_n()), 1 global (n <= kMaxN; penalties is a
+// zeroed (B, n, n) f32 workspace).  Anything else is refused.
 extern "C" cudaError_t gls_whole_launch(const float* Ds, const float* guides, const int* init,
                                         int B, int n, int n_guides, int n_iters, int pm,
+                                        int layout, float* penalties,
                                         int* best, float* best_cost, int* moves,
                                         float* trace_c, int* trace_m, int* work, int device,
                                         cudaStream_t stream) {
-  if (n < 3 || n > gls_whole_max_n() || n_guides < 1) return cudaErrorInvalidValue;
+  const bool global = layout == kGlobal;
+  if (n < 3 || n_guides < 1 || (layout != kShared && layout != kGlobal)) {
+    return cudaErrorInvalidValue;
+  }
+  if (global ? (n > kMaxN || penalties == nullptr) : n > gls_whole_max_n()) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(n);
-  err = cudaFuncSetAttribute(gls_whole_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const size_t smem = smem_bytes(n, global);
+  auto kernel = global ? gls_whole_kernel<kGlobal> : gls_whole_kernel<kShared>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  gls_whole_kernel<<<B, kThreads, smem, stream>>>(Ds, guides, init, n, n_guides, n_iters, pm,
-                                                  best, best_cost, moves, trace_c, trace_m, work);
+  kernel<<<B, kThreads, smem, stream>>>(Ds, guides, init, n, n_guides, n_iters, pm, penalties,
+                                        best, best_cost, moves, trace_c, trace_m, work);
   return cudaGetLastError();
 }

@@ -64,20 +64,27 @@ class TSPDataset:
         }
 
     @classmethod
-    def from_npz(cls, npz_path, split_file=None, scalers_file=None,
-                 feat_drop_idx=()) -> "TSPDataset":
-        """An .npz shard; `split_file` holds 0-based row indices, one a line."""
-        data = load_dataset(npz_path)
-        idx = np.arange(data["coords"].shape[0])
-        if split_file is not None:
-            idx = np.loadtxt(split_file, dtype=np.int64, ndmin=1)
+    def from_arrays(cls, data: dict, indices=None, scalers=None,
+                    feat_drop_idx=()) -> "TSPDataset":
+        """From a dataset dict (data/generate.py's arrays, with "regret");
+        `indices` selects rows."""
+        idx = np.arange(data["coords"].shape[0]) if indices is None else np.asarray(indices)
         coords = data["coords"][idx]
         return cls(coords=coords, features=edge_features(coords),
                    regret=np.asarray(data["regret"])[idx],
                    in_solution=np.asarray(data["in_solution"])[idx],
                    opt_cost=np.asarray(data["opt_cost"])[idx],
-                   scalers=load_scalers(scalers_file) if scalers_file else {},
-                   feat_drop_idx=list(feat_drop_idx))
+                   scalers=scalers or {}, feat_drop_idx=list(feat_drop_idx))
+
+    @classmethod
+    def from_npz(cls, npz_path, split_file=None, scalers_file=None,
+                 feat_drop_idx=()) -> "TSPDataset":
+        """An .npz shard; `split_file` holds 0-based row indices, one a line."""
+        indices = None
+        if split_file is not None:
+            indices = np.loadtxt(split_file, dtype=np.int64, ndmin=1)
+        scalers = load_scalers(scalers_file) if scalers_file else {}
+        return cls.from_arrays(load_dataset(npz_path), indices, scalers, feat_drop_idx)
 
     @classmethod
     def from_reference_dir(cls, *args, **kwargs):

@@ -79,6 +79,8 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     guides = list(guides)
     n = dataset.n_nodes
     Ds = coords_to_distance_matrix(dataset.coords).astype(np.float32)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.time()
     regret_mats = None
@@ -119,7 +121,10 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
         "moves": result.chunk_moves[:, -1],
         "timings": {"inference_s": t1 - t0,
                     "search_s": result.chunk_times[1] - result.chunk_times[0],
-                    "total_s": t2 - t0},
+                    "total_s": t2 - t0,
+                    # torch.cuda.max_memory_allocated over the call; None on the CPU
+                    "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                          if dev.type == "cuda" else None)},
         "result": result,
     }
 

@@ -8,7 +8,7 @@ loads it.  No source includes PyTorch's headers, so the build takes seconds.
 
 `-fmad=false` keeps nvcc from contracting a multiply and an add into one FMA:
 the whole-GLS kernel must round `D + k*P` exactly as its plain twin does, or
-accept decisions flip.  The GAT kernel asks for its FMAs explicitly.
+accept decisions flip.  The GAT kernels ask for their FMAs explicitly.
 
 `launches` counts kernel launches by name; a wrapper adds one exactly where it
 launches its kernel, so a run can show that it went through the kernels.
@@ -26,7 +26,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gat_group.cu", "gls_whole.cu")
+SOURCES = ("gat_group.cu", "gat_group_chunked.cu", "gls_whole.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -86,7 +86,9 @@ def library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gat_group_launch.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, I, P]
     lib.gat_group_launch.restype = I
-    lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I,
+    lib.gat_group_chunked_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
+    lib.gat_group_chunked_launch.restype = I
+    lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I, I, P,
                                      P, P, P, P, P, P, I, P]
     lib.gls_whole_launch.restype = I
     lib.gls_whole_max_n.argtypes = []

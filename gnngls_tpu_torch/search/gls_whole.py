@@ -4,9 +4,16 @@
 `gls_whole` runs the fixed-budget GLS of search/local_search.py for every
 instance, one thread block each.  CPU tensors take the plain twin
 `gls_fixed_plain`; CUDA tensors launch the kernel (csrc/gls_whole.cu), or the
-wrapper raises.  The kernel keeps D, the penalties and the current guide in
-shared memory, which bounds n (`max_n()`, 138 on sm_90); past it the wrapper
-raises rather than compute some other way.
+wrapper raises.  The kernel has two state layouts, one body:
+
+* "shared": D, the penalties and the current guide in one block's shared
+  memory, for n <= `max_n()` (138 on sm_90);
+* "global": D and the guides read in place from global memory, the penalties
+  in a (B, n, n) workspace that the wrapper allocates zeroed for each launch,
+  for n <= `MAX_N` (1024).
+
+"auto" takes the shared layout where it fits.  Both layouts give the same
+bits.  Past `MAX_N` the wrapper raises rather than compute some other way.
 """
 
 from __future__ import annotations
@@ -15,6 +22,9 @@ import torch
 
 from .. import kernels
 from .local_search import GLSOutput, gls_fixed_plain
+
+MAX_N = 1024  # the global layout's range; csrc/gls_whole.cu's kMaxN
+LAYOUTS = {"shared": 0, "global": 1}
 
 
 def max_n() -> int:
@@ -40,12 +50,16 @@ def _check_inputs(Ds, guides, init_tours, n_iters, perturbation_moves):
 
 
 def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
-              *, n_iters: int, perturbation_moves: int = 20) -> GLSOutput:
+              *, n_iters: int, perturbation_moves: int = 20,
+              layout: str = "auto") -> GLSOutput:
     """Ds (B, n, n) f32, guides (B, G, n, n) or (B, n, n) f32, init_tours
-    (B, n+1) int32 -> GLSOutput."""
+    (B, n+1) int32 -> GLSOutput.  `layout` ("auto", "shared", "global")
+    picks the kernel's state layout; the plain twin ignores it."""
     if guides.dim() == 3:
         guides = guides[:, None]
     _check_inputs(Ds, guides, init_tours, n_iters, perturbation_moves)
+    if layout not in ("auto", *LAYOUTS):
+        raise ValueError(f"gls_whole: unknown layout {layout!r}")
     tensors = (Ds, guides, init_tours)
     if all(t.device.type == "cpu" for t in tensors):
         return gls_fixed_plain(Ds, guides, init_tours, n_iters=n_iters,
@@ -57,9 +71,11 @@ def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gls_whole: tensors must be contiguous")
     B, n, _ = Ds.shape
-    if not 3 <= n <= max_n():
-        raise ValueError(f"gls_whole: n={n} outside the kernel's range [3, {max_n()}]: "
-                         "its state lives in one block's shared memory")
+    if layout == "auto":
+        layout = "shared" if n <= max_n() else "global"
+    top = max_n() if layout == "shared" else MAX_N
+    if not 3 <= n <= top:
+        raise ValueError(f"gls_whole: n={n} outside the {layout} layout's range [3, {top}]")
     i32, f32 = torch.int32, torch.float32
     out = GLSOutput(
         best_tours=torch.empty((B, n + 1), dtype=i32, device=dev),
@@ -70,9 +86,13 @@ def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
         work=torch.empty((B, 2), dtype=i32, device=dev))
     if B == 0:
         return out
+    penalties = None
+    if layout == "global":  # zeroed for each launch: the search starts from P = 0
+        penalties = torch.zeros((B, n, n), dtype=f32, device=dev)
     err = kernels.library().gls_whole_launch(
         Ds.data_ptr(), guides.data_ptr(), init_tours.data_ptr(), B, n,
-        guides.shape[1], n_iters, perturbation_moves,
+        guides.shape[1], n_iters, perturbation_moves, LAYOUTS[layout],
+        None if penalties is None else penalties.data_ptr(),
         *[t.data_ptr() for t in out], dev.index, kernels.stream_of(Ds))
     kernels.check(err, "gls_whole_launch")
     kernels.launches["gls_whole"] += 1

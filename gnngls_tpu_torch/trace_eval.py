@@ -1,15 +1,25 @@
-"""Where the time of the tsp100 main path goes on the card.
+"""Where the time of the port's evaluation paths goes on the card.
 
-    python -m gnngls_tpu_torch.trace_eval [--out DIR] [--n_iters 100]
+    python -m gnngls_tpu_torch.trace_eval [--out DIR] [--n_iters N] [--tsp500]
 
-Runs `evaluate.evaluate` once to warm up, then once more under
-torch.profiler (CPU and CUDA activities) on the 500 data/tsp100 test
-instances with the shipped checkpoint, and prints:
-  * the wall time of each stage (inference, search) from evaluate's timings;
-  * CUDA time by kernel name, largest first, with its share of the window;
+Default: the tsp100 main path.  Runs `evaluate.evaluate` once to warm up,
+then once more under torch.profiler (CPU and CUDA activities) on the 500
+data/tsp100 test instances with the shipped checkpoint (n_iters 100).
+
+--tsp500: the large-n path (benchmarks/tsp500_e2e.py's steps through the
+port).  After a small warm-up at n=500, profiles `generate_instances(128,
+500, seed=3, solver="gls", opt_iters=100)` (the GLS oracle) and then
+`evaluate` of the tsp100 checkpoint on those instances (guide regret_pred,
+n_iters 40, perturbation_moves 20, batch 16).
+
+Prints:
+  * the wall time of each stage (oracle, inference, search) and the peak
+    device memory from evaluate's timings;
+  * CUDA time by kernel name, largest first, with its share of kernel time;
   * the device's busy share of the profiled window (the union of kernel
     intervals over the wall time of the window), and so its idle share.
-The Chrome trace goes to DIR/trace_eval.json.  Needs a CUDA device.
+The Chrome trace goes to DIR/trace_eval.json (DIR/trace_tsp500.json with
+--tsp500).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,13 +52,19 @@ def busy_share(events, t0_us: float, t1_us: float) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=ROOT / "build" / "trace_eval")
-    ap.add_argument("--n_iters", type=int, default=100)
+    ap.add_argument("--n_iters", type=int, default=None,
+                    help="search budget (default 100, or 40 with --tsp500)")
+    ap.add_argument("--tsp500", action="store_true",
+                    help="profile the tsp500 path: oracle, then evaluate at n=500")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from .core.scaler import load_scalers
     from .data.dataset import TSPDataset
+    from .data.generate import generate_instances
     from .evaluate import evaluate, resolve_device
     from .models.convert import load_model
     from .models.regret_gat import RegretGNNConfig
@@ -57,22 +73,41 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    root = ROOT / "data" / "tsp100"
-    ds = TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
-                             scalers_file=root / "scalers.json")
     model = load_model(ROOT / "models/tsp100/checkpoint_best_val.npz", RegretGNNConfig(),
                        device=dev)
-    kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters,
-              perturbation_moves=20, batch_size=64, device=dev)
-    evaluate(ds, **kw)  # warm-up: kernel build, cuBLAS handles, allocator
+    scalers = load_scalers(ROOT / "models/tsp100/scalers.json")
+
+    def tsp500(n_inst, opt_iters):
+        data = generate_instances(n_inst, 500, seed=3, solver="gls", opt_iters=opt_iters,
+                                  device=dev)
+        data["regret"] = np.zeros_like(data["in_solution"], dtype=np.float32)
+        return TSPDataset.from_arrays(data, scalers=scalers)
+
+    if args.tsp500:
+        kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 40,
+                  perturbation_moves=20, batch_size=16, device=dev)
+        evaluate(tsp500(2, 1), **{**kw, "n_iters": 1})  # warm-up at n=500
+    else:
+        root = ROOT / "data" / "tsp100"
+        ds = TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
+                                 scalers_file=root / "scalers.json")
+        kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 100,
+                  perturbation_moves=20, batch_size=64, device=dev)
+        evaluate(ds, **kw)  # warm-up: kernel build, cuBLAS handles, allocator
     torch.cuda.synchronize()
+    stages = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
+        if args.tsp500:
+            ds = tsp500(128, 100)
+            torch.cuda.synchronize()
+            stages["oracle_and_dataset_s"] = time.time() - t0
         out = evaluate(ds, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
+    stages.update(out["timings"])
     args.out.mkdir(parents=True, exist_ok=True)
-    trace = args.out / "trace_eval.json"
+    trace = args.out / ("trace_tsp500.json" if args.tsp500 else "trace_eval.json")
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
@@ -84,7 +119,7 @@ def main(argv=None):
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     total_kernel = sum(by_name.values())
     print(f"card: {card}")
-    print(f"evaluate wall {wall:.3f} s; stages {json.dumps(out['timings'])}")
+    print(f"profiled wall {wall:.3f} s; stages {json.dumps(stages)}")
     print(f"profiled window {(t_hi - t_lo) / 1e6:.3f} s; kernel time {total_kernel / 1e6:.3f} s; "
           f"device busy share {busy_share(kern, t_lo, t_hi):.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:

@@ -4,11 +4,21 @@ from __future__ import annotations
 
 import numpy as np
 
+from .core.graph import edge_index, n_edges
+
 
 def tour_cost(D: np.ndarray, tour) -> float:
     """Cost of a closed tour (depot-to-depot node list) under matrix D."""
     t = np.asarray(tour)
     return float(D[t[:-1], t[1:]].sum())
+
+
+def tour_to_edge_vector(n: int, tour) -> np.ndarray:
+    """(E,) bool: which K_n edges the closed tour uses, undirected."""
+    t = np.asarray(tour)
+    out = np.zeros(n_edges(n), dtype=bool)
+    out[edge_index(n, t[:-1], t[1:])] = True
+    return out
 
 
 def is_valid_tour(n: int, tour) -> bool:

@@ -36,12 +36,38 @@ and prints no result line:
   8. the n=200 JAX fixture: predictions within 5e-4 and best costs of the
      search equal to gnngls_tpu's (gnngls_tpu_torch/testdata/).
   9. K3, K2 (the route's alternative) and K1's global layout timed at the
-     tsp500 path's shapes and held against their twins there, with bounds;
-     then the `kernels` JSON line and the result line.
+     tsp500 path's shapes and held against their twins there, with bounds.
+ 10. the per-head matmul partials (K4) against their plain twin on seeded
+     inputs at n = 10, 50, 100 (B=2); K4 merged against K2 merged on the
+     checkpoint's layer 0 at B=64 n=100, both timed there; the pallas_mxu
+     route at n=120, which warns and runs K3; and K4 at n=300, whose score
+     tile does not fit a block, which raises ValueError.
+ 11. the tsp100 pallas_mxu path, with the launch counts reset just before and
+     read just after: predict_regret(gat_impl="pallas_mxu") over the 500
+     test instances at batch 64 (64 K4 launches, no K2), the predictions
+     against phase 3's, then nearest neighbour on the regret and the search
+     (n_iters 100, pm 20); instances 0-63 held against the JAX fixture.
+ 12. the threshold-mask separable partials (K5), f32 and bf16 payloads,
+     against their plain twin: seeded inputs with a 10x logit spread at
+     n = 10 and 100, constant features (tied maxima), and the checkpoint's
+     layer 0 on two n=500 instances and on the n=200 fixture; both modes
+     timed at B=4 n=500, the f32 payloads also on the n=200 fixture (the
+     shape of its launches in phase 13); K5 at n=900 F=32, too large for a
+     block, raises ValueError.
+ 13. the tsp500 pallas_sep_fast path (benchmarks/tsp500_e2e.py's default
+     forward) on phase 7's instances, with the launch counts reset just
+     before and read just after: predict_regret(gat_impl="pallas_sep_fast",
+     batch_size=4) (256 K5 launches, no K3), the predictions against phase
+     7's K3 ones (max abs difference within 5e-3, Spearman at least
+     0.9999), the search (n_iters 40,
+     pm 20) and its gap against the oracle; then gat_impl="pallas_sep" on the
+     n=200 JAX fixture, predictions within 5e-4.  Then the `kernels` JSON
+     line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -59,6 +85,11 @@ PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 K2_REL_TOL = 1e-5  # max |kernel - plain| <= K2_REL_TOL * max |plain|
 K3_REL_TOL = 1e-5  # the same for the source-chunked kernel
+K4_REL_TOL = 1e-5  # the same for the per-head matmul partials, and K4 merged vs K2 merged
+K5_REL_TOL = 1e-5  # the same for the separable partials, either payload type
+BATCH_SEP = 4  # tsp500_e2e.py's batch
+# K5-bf16 predictions against K3's at n=500: rank agreement, max abs difference
+SPEARMAN_MIN, SEP_FAST_PRED_TOL = 0.9999, 5e-3
 FORBIDDEN = ("jax", "gnngls_tpu", "pandas", "networkx", "matplotlib")
 
 
@@ -96,13 +127,20 @@ def errs(a, b):
     return d, d / max(float(b.double().abs().max()), 1e-30)
 
 
-def gat_partials_work(B, n, H, F):
-    """(operations, bytes) of the group partials' function at this shape:
-    (2F+6) operations per (target, source, head) pair (F FMAs, the score, its
-    leaky, the exp, the sums); el, er, h read once, m, z, num written once."""
-    g, E = n - 1, n * (n - 1) // 2
-    ops = B * n * g * (g - 1) * H * (2 * F + 6)
-    nbytes = 4 * (2 * B * E * H + B * E * H * F + n * g + 2 * B * n * g * H + B * n * g * H * F)
+def gat_partials_work(B, n, H, F, h_bytes=4):
+    """(operations, bytes) of the group partials' function (K2-K5 compute the
+    same m, z, num) at this shape, its operations counted in the cheapest form
+    known, the sorted prefix sums of ops/gat_sep.py.  Per (batch, city, head)
+    group of K = n-1 edges: a sort of el (K log2 K compares); per source A, C
+    (2 exps), the two payloads (2F products) and their prefix and suffix sums
+    (2F+2 adds); per target a binary search (log2 K compares), m, B, D (10
+    operations), z and num from the sums less the self term (4F+7).  el, er,
+    h (h_bytes per element) read once, m, z, num written once."""
+    K, E = n - 1, n * (n - 1) // 2
+    lg = math.ceil(math.log2(K))
+    ops = B * n * H * K * (2 * lg + 8 * F + 21)
+    nbytes = (4 * (2 * B * E * H + n * K + 2 * B * n * K * H + B * n * K * H * F)
+              + h_bytes * B * E * H * F)
     return ops, nbytes
 
 
@@ -120,15 +158,20 @@ def gls_work(work, n, G, n_iters):
     return ops, nbytes
 
 
-def row(name, source, replaces, launches, err, ms, plain, ops, nbytes, shape, **extra):
-    """One entry of the `kernels` JSON line; the bound is the larger of the
-    operations over the f32 peak and the bytes over the memory rate."""
+def bound(ops, nbytes):
+    """(ms, what bounds it): the larger of the operations over the f32 peak
+    and the bytes over the memory rate."""
     t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def row(name, source, replaces, launches, err, ms, plain, ops, nbytes, shape, **extra):
+    """One entry of the `kernels` JSON line."""
+    bound_ms, bound_by = bound(ops, nbytes)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "shape": shape, **extra}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
+            **extra}
 
 
 def phase0_build():
@@ -345,15 +388,13 @@ def phase4_timings(model, ds, dev, out, counts, k2_err, k1_err):
     ]
 
 
-def layer0_inputs(model, coords, dev):
-    """The checkpoint's layer-0 el, er, h and city_edges on these instances."""
+def layer0_embedding(model, coords, dev):
+    """The checkpoint's embedding (layer 0's input) on these instances."""
     import numpy as np
     import torch
 
-    from gnngls_tpu_torch.core.graph import build_topology
     from gnngls_tpu_torch.core.scaler import load_scalers
     from gnngls_tpu_torch.data.dataset import TSPDataset
-    from gnngls_tpu_torch.ops.gat import project
 
     B, n, _ = coords.shape
     E = n * (n - 1) // 2
@@ -361,10 +402,32 @@ def layer0_inputs(model, coords, dev):
          "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
     ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
     with torch.no_grad():
-        x = torch.as_tensor(ds.get_scaled_batch(np.arange(B))["features"], device=dev)
-        h, el, er = project(model.layers[0].gat.params(), model.embed(x), model.cfg.n_heads)
-    city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=dev)
+        return model.embed(torch.as_tensor(ds.get_scaled_batch(np.arange(B))["features"],
+                                           device=dev))
+
+
+def layer0_inputs(model, coords, dev):
+    """The checkpoint's layer-0 el, er, h and city_edges on these instances."""
+    import torch
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.ops.gat import project
+
+    with torch.no_grad():
+        h, el, er = project(model.layers[0].gat.params(), layer0_embedding(model, coords, dev),
+                            model.cfg.n_heads)
+    city = torch.as_tensor(build_topology(coords.shape[1]).city_edges, dtype=torch.int32,
+                           device=dev)
     return el.contiguous(), er.contiguous(), h.contiguous(), city
+
+
+def predictions(out, n):
+    """The per-edge predictions an evaluate used: its regret guide, read back
+    at the upper triangle."""
+    import numpy as np
+
+    us, vs = np.triu_indices(n, k=1)
+    return out["guide_stack"][:, 0, us, vs]
 
 
 def phase5_gat_chunked(model, dev):
@@ -530,9 +593,7 @@ def phase8_fixture200(model, dev):
     n_iters, pm = int(fx["n_iters"]), int(fx["perturbation_moves"])
     out = evaluate(ds, model=model, guides=["regret_pred"], n_iters=n_iters,
                    perturbation_moves=pm, batch_size=B, device=dev)
-    us, vs = np.triu_indices(n, k=1)
-    pred = out["guide_stack"][:, 0, us, vs]  # the predictions, scattered to (n, n)
-    err = float(np.abs(pred - fx["pred"]).max())
+    err = float(np.abs(predictions(out, n) - fx["pred"]).max())
     log(f"  n={n} predictions vs the JAX fixture: max abs {err:.3e} (tol {PRED_TOL})")
     require(err <= PRED_TOL, f"n={n} predictions differ from JAX by {err:.3e}")
     mine = np.float32(out["best_costs"])
@@ -627,6 +688,309 @@ def phase9_timings500(model, data, out, counts7, k3_err, dev):
     return rows
 
 
+def search_on(preds, coords, n_iters, pm, dev):
+    """The search as benchmarks/tsp500_e2e.py runs it on given predictions:
+    nearest neighbour on the regret matrix, then the whole-GLS kernel with
+    that matrix as the only guide.  Returns the result and the search's
+    seconds."""
+    import torch
+
+    from gnngls_tpu_torch.core.graph import edge_vector_to_matrix
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search import batched
+
+    n = coords.shape[1]
+    R = edge_vector_to_matrix(preds.astype("float32"), n)
+    inits = batched.nearest_neighbor_batch(torch.as_tensor(R, device=dev)).cpu().numpy()
+    res = batched.run_fixed_kernel(coords_to_distance_matrix(coords), R[:, None], inits,
+                                   n_iters=n_iters, perturbation_moves=pm, device=dev)
+    return res, res.chunk_times[1] - res.chunk_times[0]  # the kernel's window, synchronised
+
+
+def require_too_large(partials, n, F, dev, *extra):
+    """A launcher refuses a block that does not fit the device's shared
+    memory, and the wrapper raises ValueError for it; nothing is launched."""
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.core.graph import build_topology
+
+    E = n * (n - 1) // 2
+    el = torch.zeros((1, E, 1), device=dev)
+    city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=dev)
+    before = dict(kernels.launches)
+    try:
+        partials(el, el, torch.zeros((1, E, 1, F), device=dev), city, *extra)
+    except ValueError as e:
+        require("shared memory" in str(e), f"{partials.__name__} at n={n}: {e}")
+        require(dict(kernels.launches) == before, f"{partials.__name__} at n={n} counted a launch")
+        log(f"  {partials.__name__} at n={n} F={F}: ValueError ({e})")
+        return
+    raise SmokeFailure(f"{partials.__name__} at n={n} F={F} did not raise")
+
+
+def phase10_mxu(model, ds, dev):
+    """K4 against its twin, K4 merged against K2 merged, the n=120 route; K4
+    and K2 timed at the main path's shape."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.ops.gat import project
+    from gnngls_tpu_torch.ops.gat_group import (gat_conv_group, gat_group_partials,
+                                                gat_group_partials_mxu,
+                                                gat_group_partials_mxu_plain,
+                                                merge_group_partials)
+
+    worst = 0.0
+    rng = np.random.default_rng(10)
+    with torch.no_grad():
+        for n, H, F in ((10, 8, 16), (10, 4, 8), (50, 8, 16), (100, 8, 16)):
+            E = n * (n - 1) // 2
+            rnd = lambda *shape: torch.as_tensor(  # noqa: E731
+                rng.standard_normal(shape), dtype=torch.float32, device=dev)
+            topo = build_topology(n)
+            city = torch.as_tensor(topo.city_edges, dtype=torch.int32, device=dev)
+            args = (3 * rnd(2, E, H), 3 * rnd(2, E, H), rnd(2, E, H, F), city)
+            got = gat_group_partials_mxu(*args)
+            torch.cuda.synchronize()
+            want = gat_group_partials_mxu_plain(*args)
+            require(torch.equal(got[0], want[0]), f"K4 n={n}: the maxima differ")
+            parts = dict(zip(("m", "z", "num"), zip(got, want)))
+            parts["merged"] = (merge_group_partials(*got, topo),
+                               merge_group_partials(*want, topo))
+            for key, (a, b) in parts.items():
+                ab, rel = errs(a, b)
+                worst = max(worst, ab)
+                require(rel <= K4_REL_TOL, f"K4 n={n} H={H} F={F} {key}: rel err {rel:.3e}")
+            log(f"  K4 seeded B=2 n={n} H={H} F={F}: m equal, z/num/merged within rel "
+                f"{K4_REL_TOL} (worst abs so far {worst:.3e})")
+
+        n = ds.n_nodes
+        topo = build_topology(n)
+        x = torch.as_tensor(ds.get_scaled_batch(np.arange(BATCH))["features"], device=dev)
+        h, el, er = project(model.layers[0].gat.params(), model.embed(x), model.cfg.n_heads)
+        args = (el.contiguous(), er.contiguous(), h.contiguous(),
+                torch.as_tensor(topo.city_edges, dtype=torch.int32, device=dev))
+        B, E, H, F = h.shape
+        k4_ms = cuda_ms(lambda: gat_group_partials_mxu(*args), reps=10, warmup=2)
+        k2_ms = cuda_ms(lambda: gat_group_partials(*args), reps=10, warmup=2)
+        k4_plain = cuda_ms(lambda: gat_group_partials_mxu_plain(*args), reps=2)
+        got = gat_group_partials_mxu(*args)
+        for key, a, b in zip(("m", "z", "num"), got, gat_group_partials_mxu_plain(*args)):
+            ab, rel = errs(a, b)
+            worst = max(worst, ab)
+            require(rel <= K4_REL_TOL, f"K4 at B={B} n={n}: {key} rel err {rel:.3e}")
+        ab, rel = errs(merge_group_partials(*got, topo),
+                       merge_group_partials(*gat_group_partials(*args), topo))
+        require(rel <= K4_REL_TOL, f"K4 merged vs K2 merged at B={B} n={n}: rel {rel:.3e}")
+        log(f"  K4 at B={B} n={n} H={H} F={F}: {k4_ms:.4f} ms/launch, plain {k4_plain:.3f} ms; "
+            f"K2 at the same shape {k2_ms:.4f} ms; K4 merged vs K2 merged max abs {ab:.3e} "
+            f"rel {rel:.3e}")
+
+        n = 120
+        topo = build_topology(n)
+        coords = np.random.default_rng(120).random((2, n, 2)).astype(np.float32)
+        h0 = layer0_embedding(model, coords, dev)
+        params = model.layers[0].gat.params()
+        kernels.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            routed = gat_conv_group(params, topo, h0, model.cfg.n_heads, mxu=True)
+        counts = dict(kernels.launches)
+        require(any("source-chunked" in str(w.message) for w in caught),
+                f"pallas_mxu at n={n}: no warning")
+        require(counts == {"gat_group_chunked": 1}, f"pallas_mxu at n={n} launched {counts}")
+        require(torch.equal(routed, gat_conv_group(params, topo, h0, model.cfg.n_heads)),
+                f"pallas_mxu at n={n} differs from the K3 route")
+        log(f"  pallas_mxu at n={n}: warned and ran K3 ({counts}), equal to the K3 route")
+        require_too_large(gat_group_partials_mxu, 300, 16, dev)
+    log(f"phase 10: K4 matches its plain twin and K2 (rel tol {K4_REL_TOL})")
+    k4_ops, k4_bytes = gat_partials_work(B, ds.n_nodes, H, F)
+    return worst, k4_ms, k4_plain, k2_ms, k4_ops, k4_bytes, f"B={B} n={ds.n_nodes} H={H} F={F}"
+
+
+def phase11_mxu_path(model, ds, dev, k2_preds):
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    kernels.reset_launch_counts()
+    t = time.time()
+    preds = predict_regret(model, ds, batch_size=BATCH, device=dev, gat_impl="pallas_mxu")
+    infer_s = time.time() - t
+    counts = dict(kernels.launches)
+    batches = -(-len(ds) // BATCH)
+    want = {"gat_group_mxu": model.cfg.depth * batches}
+    require(counts == want, f"pallas_mxu path launches {counts}, expected {want}")
+    diff = float(np.abs(preds - k2_preds).max())
+    log(f"phase 11: pallas_mxu predictions on {len(ds)} tsp100 instances in {infer_s:.3f} s "
+        f"({len(ds) * preds.shape[1] / infer_s:.4g} edges/s); launches {counts}; max abs "
+        f"difference from phase 3's K2 predictions {diff:.3e}")
+    require(diff <= PRED_TOL, f"pallas_mxu predictions differ from K2's by {diff:.3e}")
+    res, search_s = search_on(preds, ds.coords, N_ITERS, PM, dev)
+    n = ds.n_nodes
+    for b in range(len(ds)):
+        require(is_valid_tour(n, res.best_tours[b]), f"pallas_mxu path instance {b}: invalid tour")
+    gaps = (res.best_costs / ds.opt_cost - 1.0) * 100.0
+    fx = json.loads((ROOT / "gnngls_tpu_torch/testdata/jax_tsp100_test64_it100.json").read_text())
+    k = len(fx["best_cost"])
+    eq = int((np.float32(res.best_costs[:k]) == np.float32(fx["best_cost"])).sum())
+    my_gap = float(gaps[:k].mean())
+    log(f"  search (n_iters {N_ITERS}, pm {PM}) {search_s:.3f} s: gap mean {gaps.mean():.4f}%; "
+        f"instances 0-{k - 1}: mean gap {my_gap:.4f}% vs JAX {fx['mean_gap']:.4f}%, {eq}/{k} "
+        "best costs equal")
+    require(abs(my_gap - fx["mean_gap"]) <= 0.1,
+            "pallas_mxu path: mean gap over 0-63 differs from the JAX fixture by more than 0.1 pp")
+    return counts
+
+
+def phase12_sep(model, data, dev):
+    """K5 against its twin in both payload modes; both timed at B=4 n=500,
+    the f32 payloads also at B=2 n=200, the shape of the path that counts
+    their launches (phase 13's n=200 fixture prediction)."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.ops.gat import project
+    from gnngls_tpu_torch.ops.gat_group import merge_group_partials
+    from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
+
+    worst = {False: 0.0, True: 0.0}
+    rng = np.random.default_rng(12)
+    layer0 = model.layers[0].gat.params()
+    H = model.cfg.n_heads
+    cases = []
+    with torch.no_grad():
+        for n in (10, 100):
+            E = n * (n - 1) // 2
+            rnd = lambda *shape: torch.as_tensor(  # noqa: E731
+                rng.standard_normal(shape), dtype=torch.float32, device=dev)
+            cases.append((f"seeded x10 spread, B=2 n={n} H=8 F=16", n,
+                          (10 * rnd(2, E, 8), 10 * rnd(2, E, 8), rnd(2, E, 8, 16))))
+        n = 20
+        ones = torch.ones((2, n * (n - 1) // 2, model.cfg.embed_dim), device=dev)
+        h, el, er = project(layer0, ones, H)
+        cases.append((f"constant features (tied maxima), B=2 n={n}", n, (el, er, h)))
+        coords = np.random.default_rng(SEED500).random((2, N500, 2)).astype(np.float32)
+        h, el, er = project(layer0, layer0_embedding(model, coords, dev), H)
+        cases.append((f"checkpoint layer 0, B=2 n={N500}", N500, (el, er, h)))
+        fx_coords = np.load(ROOT / "gnngls_tpu_torch/testdata/jax_tsp200_seed3.npz")["coords"]
+        fx_args = layer0_inputs(model, fx_coords, dev)
+        n_fx = fx_coords.shape[1]
+        cases.append((f"checkpoint layer 0, the n={n_fx} fixture, B={fx_coords.shape[0]}",
+                      n_fx, fx_args[:3]))
+        for name, n, (el, er, h) in cases:
+            topo = build_topology(n)
+            city = torch.as_tensor(topo.city_edges, dtype=torch.int32, device=dev)
+            args = (el.contiguous(), er.contiguous(), h.contiguous(), city)
+            for fast in (False, True):
+                got = gat_sep_partials(*args, fast)
+                torch.cuda.synchronize()
+                want = gat_sep_partials_plain(*args, fast)
+                mode = "bf16" if fast else "f32"
+                require(torch.equal(got[0], want[0]), f"K5 {mode} {name}: m differs")
+                parts = dict(zip(("z", "num"), zip(got[1:], want[1:])))
+                parts["merged"] = (merge_group_partials(*got, topo),
+                                   merge_group_partials(*want, topo))
+                for key, (a, b) in parts.items():
+                    require(bool(torch.isfinite(a).all()), f"K5 {mode} {name}: {key} not finite")
+                    ab, rel = errs(a, b)
+                    worst[fast] = max(worst[fast], ab)
+                    log(f"  K5 {mode} {name}: {key:6s} max abs {ab:.3e}  rel {rel:.3e}")
+                    require(rel <= K5_REL_TOL, f"K5 {mode} {name} {key}: rel err {rel:.3e}")
+            del got, want
+        args = layer0_inputs(model, data["coords"][:BATCH_SEP], dev)
+        B, E, H, F = args[2].shape
+        timed = {}
+        for fast in (False, True):
+            ms = cuda_ms(lambda: gat_sep_partials(*args, fast), reps=10, warmup=2)
+            plain = cuda_ms(lambda: gat_sep_partials_plain(*args, fast), reps=1)
+            for key, a, b in zip(("m", "z", "num"), gat_sep_partials(*args, fast),
+                                 gat_sep_partials_plain(*args, fast)):
+                ab, rel = errs(a, b)
+                worst[fast] = max(worst[fast], ab)
+                require(rel <= K5_REL_TOL, f"K5 at B={B} n={N500} fast={fast}: {key} rel {rel:.3e}")
+            timed[fast] = (ms, plain, *gat_partials_work(B, N500, H, F, 2 if fast else 4))
+            log(f"  K5 {'bf16' if fast else 'f32'} at B={B} n={N500} H={H} F={F}: {ms:.4f} "
+                f"ms/launch, plain {plain:.3f} ms")
+        fx_ms = cuda_ms(lambda: gat_sep_partials(*fx_args, False), reps=10, warmup=2)
+        fx_plain = cuda_ms(lambda: gat_sep_partials_plain(*fx_args, False), reps=1)
+        fx_shape = f"B={fx_coords.shape[0]} n={n_fx} H={H} F={F}"
+        log(f"  K5 f32 at {fx_shape}: {fx_ms:.4f} ms/launch, plain {fx_plain:.3f} ms")
+        require_too_large(gat_sep_partials, 900, 32, dev, False)
+    log(f"phase 12: K5 matches its plain twin in both modes (rel tol {K5_REL_TOL})")
+    fx_bound = bound(*gat_partials_work(fx_coords.shape[0], n_fx, H, F))[0]
+    return worst, timed, f"B={B} n={N500} H={H} F={F}", (fx_ms, fx_plain, fx_bound, fx_shape)
+
+
+def phase13_sep_path(model, data, out500, dev):
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.core.scaler import load_scalers
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    d = dict(data)
+    d["regret"] = np.zeros_like(np.asarray(d["in_solution"], np.float32))
+    ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    kernels.reset_launch_counts()
+    t = time.time()
+    preds = predict_regret(model, ds, batch_size=BATCH_SEP, device=dev,
+                           gat_impl="pallas_sep_fast")
+    infer_s = time.time() - t
+    counts = dict(kernels.launches)
+    want = {"gat_sep": model.cfg.depth * -(-len(ds) // BATCH_SEP)}
+    require(counts == want, f"pallas_sep_fast path launches {counts}, expected {want}")
+    k3 = predictions(out500, N500)
+    a, b = (torch.as_tensor(v, device=dev).reshape(-1) for v in (preds, k3))
+    diff = float((a.double() - b.double()).abs().max())
+    ranks = [torch.argsort(torch.argsort(v, stable=True), stable=True).double() for v in (a, b)]
+    rho = float(torch.corrcoef(torch.stack(ranks))[0, 1])
+    del a, b, ranks
+    log(f"phase 13: pallas_sep_fast predictions on {len(ds)} n={N500} instances at batch "
+        f"{BATCH_SEP} in {infer_s:.3f} s ({preds.size / infer_s:.4g} edges/s); launches "
+        f"{counts}; vs phase 7's K3 predictions: max abs difference {diff:.3e}, Spearman "
+        f"{rho:.6f}")
+    require(bool(np.isfinite(preds).all()), "pallas_sep_fast predictions are not finite")
+    require(rho >= SPEARMAN_MIN, f"Spearman {rho:.6f} against K3's predictions < {SPEARMAN_MIN}")
+    require(diff <= SEP_FAST_PRED_TOL,
+            f"pallas_sep_fast predictions differ from K3's by {diff:.3e} > {SEP_FAST_PRED_TOL}")
+    res, search_s = search_on(preds, ds.coords, N_ITERS500, 20, dev)
+    for i in range(len(ds)):
+        require(is_valid_tour(N500, res.best_tours[i]), f"sep path instance {i}: invalid tour")
+    gaps = (res.best_costs / data["opt_cost"] - 1.0) * 100.0
+    require(bool(np.isfinite(gaps).all()), "sep path: gaps are not finite")
+    log(f"  search (n_iters {N_ITERS500}, pm 20) {search_s:.3f} s: gap vs the oracle mean "
+        f"{gaps.mean():.4f}%  median {np.median(gaps):.4f}%  max {gaps.max():.4f}% (the K3 "
+        f"path's: {out500['gaps'].mean():.4f}%)")
+
+    fx = np.load(ROOT / "gnngls_tpu_torch/testdata/jax_tsp200_seed3.npz")
+    B, n, _ = fx["coords"].shape
+    E = n * (n - 1) // 2
+    d = {"coords": fx["coords"], "regret": np.zeros((B, E), np.float32),
+         "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
+    ds200 = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    kernels.reset_launch_counts()
+    p200 = predict_regret(model, ds200, batch_size=B, device=dev, gat_impl="pallas_sep")
+    counts200 = dict(kernels.launches)
+    err = float(np.abs(p200 - fx["pred"]).max())
+    log(f"  pallas_sep (f32) on the n={n} JAX fixture: predictions max abs {err:.3e} (tol "
+        f"{PRED_TOL}); launches {counts200}")
+    require(counts200 == {"gat_sep": model.cfg.depth}, f"pallas_sep launches {counts200}")
+    require(err <= PRED_TOL, f"pallas_sep predictions at n={n} differ from JAX by {err:.3e}")
+    return counts, counts200
+
+
 def main() -> int:
     try:
         import torch
@@ -659,15 +1023,38 @@ def main() -> int:
         out, counts = phase3_main(model, ds, dev)
         rows = phase4_timings(model, ds, dev, out, counts, k2_err, k1_err)
         log("phase 4: the tsp100 path's kernels timed")
+        k2_preds = predictions(out, ds.n_nodes)
         del out
         k3_err = phase5_gat_chunked(model, dev)
         phase6_gls_global(dev)
         data, out500, counts500 = phase7_tsp500(model, dev)
         phase8_fixture200(model, dev)
         rows += phase9_timings500(model, data, out500, counts500, k3_err, dev)
+        log("phase 9: the tsp500 path's kernels timed")
+        k4_err, k4_ms, k4_plain, k2_same, k4_ops, k4_bytes, k4_shape = phase10_mxu(model, ds, dev)
+        counts11 = phase11_mxu_path(model, ds, dev, k2_preds)
+        k5_err, k5_timed, k5_shape, k5_fx = phase12_sep(model, data, dev)
+        counts13, counts200 = phase13_sep_path(model, data, out500, dev)
+        rows.append(row("gat_group_mxu", "gnngls_tpu_torch/csrc/gat_group_mxu.cu",
+                        "gnngls_tpu/ops/pallas_gat.py:143", counts11.get("gat_group_mxu", 0),
+                        k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape, k2_same_shape_ms=k2_same))
+        ms, plain, ops, nbytes = k5_timed[True]
+        rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sep.cu",
+                        "gnngls_tpu/ops/pallas_gat_sep.py:48", counts13.get("gat_sep", 0),
+                        k5_err[True], ms, plain, ops, nbytes,
+                        f"bf16 payloads, {k5_shape}; launches from phase 13's n=500 path"))
+        ms, plain, ops, nbytes = k5_timed[False]
+        fx_ms, fx_plain, fx_bound, fx_shape = k5_fx
+        rows.append(row("gat_sep_f32", "gnngls_tpu_torch/csrc/gat_sep.cu",
+                        "gnngls_tpu/ops/pallas_gat_sep.py:48", counts200.get("gat_sep", 0),
+                        k5_err[False], ms, plain, ops, nbytes,
+                        f"f32 payloads, {k5_shape}; launches from phase 13's pallas_sep "
+                        f"prediction of the n=200 fixture ({fx_shape}, timed there too)",
+                        launch_shape_ms=fx_ms, launch_shape_plain_ms=fx_plain,
+                        launch_shape_bound_ms=fx_bound))
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 9: done on {card}")
+        log(f"phase 13: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

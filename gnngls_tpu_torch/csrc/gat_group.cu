@@ -7,10 +7,12 @@
 // Inputs: el, er (B, E, H) f32; h (B, E, H, F) f32; city_edges (n, g) int32.
 // Outputs: m, z (B, n, g, H) f32; num (B, n, g, H, F) f32.
 //
-// What bounds it on an H100 SXM: at B=64, n=100, H=8, F=16 the sums take
-// B*n*g*g*H*F = 8.0e9 FMA (16 GFLOP) on CUDA cores, 0.24 ms at 67 TFLOP/s f32;
-// it reads h (162 MB), el and er (20 MB) and writes num (324 MB), m and z
-// (40 MB): 0.55 GB, 0.16 ms at 3.35 TB/s.  Compute bounds it.
+// What bounds it on an H100 SXM: at B=64, n=100, H=8, F=16 this kernel's
+// pairwise sums take B*n*g*g*H*F = 8.0e9 FMA (16 GFLOP) on CUDA cores,
+// 0.24 ms at 67 TFLOP/s f32; the sorted prefix sums of ops/gat_sep.py give
+// the same partials in 0.012 ms of operations.  It reads h (162 MB), el and
+// er (20 MB) and writes num (324 MB), m and z (40 MB): 0.55 GB, 0.16 ms at
+// 3.35 TB/s.  The bytes bound the function.
 //
 // Design: the block gathers its group's el, er and h rows through city_edges
 // into shared memory (g*(F+2)*4 B, 7 KB at n=100), then each thread owns
@@ -23,6 +25,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "smem.cuh"
 
 namespace {
 
@@ -90,8 +94,7 @@ cudaError_t launch(const float* el, const float* er, const float* h, const int* 
                    int B, int n, int E, int H, float* m, float* z, float* num,
                    cudaStream_t stream) {
   const size_t smem = (size_t)(n - 1) * (F + 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gat_group_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = grant_smem(gat_group_kernel<F>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(n, H, B);
   gat_group_kernel<F><<<grid, kThreads, smem, stream>>>(el, er, h, city, n, E, H, m, z, num);
@@ -115,5 +118,6 @@ extern "C" cudaError_t gat_group_launch(const float* el, const float* er, const 
 }
 
 extern "C" const char* gnngls_cuda_error_string(int err) {
+  if (err == kSmemExceeded) return "a block needs more shared memory than the device allows";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

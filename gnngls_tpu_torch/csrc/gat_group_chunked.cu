@@ -30,10 +30,13 @@
 // exponentials and sums.  The merge is written as multiply, multiply, add
 // (the build passes -fmad=false) as the twin computes it.
 //
-// What bounds it on an H100 SXM: at B=16, n=500, H=8, F=16, gs=16 the block
-// does B*n*g*gp*H = 1.6e10 (target, source, head) pairs of ~(2F+6) f32
-// operations on CUDA cores, 9.0 ms at 67 TFLOP/s; it moves 3.4 GB (num is
-// 2 GB), 1.0 ms at 3.35 TB/s.  Compute bounds it.
+// What bounds it on an H100 SXM: at B=16, n=500, H=8, F=16, gs=16 this
+// kernel does B*n*g*gp*H = 1.6e10 (target, source, head) pairs of ~(2F+6)
+// f32 operations on CUDA cores, 9.0 ms at 67 TFLOP/s.  The function needs far
+// fewer: the sorted prefix sums of ops/gat_sep.py give the same partials in
+// O(K log K + K F) per group, 0.08 ms.  It moves 3.4 GB (num is 2 GB), 1.0 ms
+// at 3.35 TB/s, so the bytes bound the function; this pairwise kernel is
+// bounded by its own operations.
 // Numerics: expf (not __expf), f32 FMAs on CUDA cores for the chunk sums, no
 // fast-math.
 

@@ -13,6 +13,7 @@ the data-generation slice of the port.
 
 from __future__ import annotations
 
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -32,8 +33,17 @@ def coords_to_distance_matrix(coords: np.ndarray) -> np.ndarray:
 
 
 def resolve_solver(n_nodes: int, solver: Optional[str] = None) -> str:
-    """The oracle for n_nodes: "gls" for n > 22 when none is named."""
+    """The oracle for n_nodes: "gls" for n > 22 when none is named.
+
+    gnngls_tpu names "concorde" at every n when a `concorde` binary is on
+    PATH; until the exact solvers are ported that raises here, so that the
+    two packages never label the same instances with different oracles."""
     if solver is None:
+        if shutil.which("concorde"):
+            raise NotImplementedError(
+                "a concorde binary is on PATH, so gnngls_tpu would label with solver "
+                "'concorde', which waits for the data-generation slice of the port; "
+                "pass solver='gls'")
         if n_nodes <= EXACT_MAX_N:
             raise NotImplementedError(
                 f"n={n_nodes} <= {EXACT_MAX_N} takes an exact solver in gnngls_tpu, "

@@ -43,8 +43,9 @@ def resolve_device(device=None) -> torch.device:
 
 @torch.no_grad()
 def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 64,
-                   device=None) -> np.ndarray:
-    """Unscaled, non-negative per-edge regret predictions, (N, E)."""
+                   device=None, gat_impl: str = "auto") -> np.ndarray:
+    """Unscaled, non-negative per-edge regret predictions, (N, E).  gat_impl
+    names the GATConv route (`models.regret_gat.gat_conv_for`)."""
     dev = resolve_device(device)
     exact_f32_matmuls()
     model = model.to(dev).eval()
@@ -52,7 +53,7 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
     for s in range(0, len(dataset), batch_size):
         idx = np.arange(s, min(s + batch_size, len(dataset)))
         x = torch.as_tensor(dataset.get_scaled_batch(idx)["features"], device=dev)
-        outs.append(model(x)[..., 0].cpu().numpy())
+        outs.append(model(x, gat_impl=gat_impl)[..., 0].cpu().numpy())
     y_scaled = np.concatenate(outs, axis=0)
     y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
     return np.maximum(y, 0.0)

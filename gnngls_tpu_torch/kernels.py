@@ -26,7 +26,10 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gat_group.cu", "gat_group_chunked.cu", "gls_whole.cu")
+SOURCES = ("gat_group.cu", "gat_group_chunked.cu", "gat_group_mxu.cu", "gat_sep.cu",
+           "gls_whole.cu")
+HEADERS = ("smem.cuh",)
+SMEM_EXCEEDED = 9000  # csrc/smem.cuh's kSmemExceeded: a block's shared memory does not fit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -54,7 +57,7 @@ def _nvcc() -> str:
 
 def _library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     return build_dir() / f"libgnngls_kernels_{h.hexdigest()[:16]}.so"
 
@@ -88,6 +91,10 @@ def library() -> ctypes.CDLL:
     lib.gat_group_launch.restype = I
     lib.gat_group_chunked_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
     lib.gat_group_chunked_launch.restype = I
+    lib.gat_group_mxu_launch.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, I, P]
+    lib.gat_group_mxu_launch.restype = I
+    lib.gat_sep_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
+    lib.gat_sep_launch.restype = I
     lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I, I, P,
                                      P, P, P, P, P, P, I, P]
     lib.gls_whole_launch.restype = I
@@ -99,7 +106,12 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise when a launcher reports a CUDA error (refused or faulted launch)."""
+    """Raise when a launcher reports a CUDA error (refused or faulted launch):
+    ValueError when the shape needs more shared memory than a block may
+    have, RuntimeError otherwise."""
+    if err == SMEM_EXCEEDED:
+        raise ValueError(f"{what}: at this shape a block needs more shared memory than the "
+                         "device allows")
     if err != 0:
         msg = library().gnngls_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

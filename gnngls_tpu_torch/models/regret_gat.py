@@ -16,14 +16,17 @@ allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False) before it runs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
 
 from ..core.graph import build_topology, n_from_edges
-from ..ops.gat import GATParams
+from ..ops.gat import GATParams, gat_conv, gat_conv_naive
 from ..ops.gat_group import gat_conv_group
+from ..ops.gat_group_sep import gat_conv_group_sep
+from ..ops.gat_sep import gat_conv_sep
 from ..ops.linear import Linear
 from ..ops.norm import BatchNormEval
 
@@ -76,10 +79,49 @@ class AttentionLayer(nn.Module):
         self.bn2 = BatchNormEval(cfg.embed_dim)
 
 
+def gat_conv_for(gat_impl: str):
+    """The GATConv that `gat_impl` names, as gnngls_tpu's `forward` routes
+    it (models/regret_gat.py:123-165):
+
+      auto, pallas              ops.gat_group.gat_conv_group (K2, or K3 past
+                                the one-shot size)
+      pallas_mxu                gat_conv_group(mxu=True) (K4)
+      pallas_sep[_fast][@gc]    ops.gat_group_sep.gat_conv_group_sep (K5);
+                                "_fast" takes bf16 payloads
+      naive, fast               ops.gat.gat_conv_naive, ops.gat.gat_conv
+      sep, sep_fast             ops.gat_sep.gat_conv_sep (sorted prefixes)
+
+    "@gc" (an int >= 1) is the TPU kernel's city groups per grid cell: it is
+    checked and then ignored, since it changes no number and the CUDA launch
+    has no such grid.  "chunked" and "bf16" wait for a later slice and raise
+    NotImplementedError; any other name raises ValueError (gnngls_tpu runs
+    its dense path on an unknown name)."""
+    if gat_impl in ("auto", "pallas"):
+        return gat_conv_group
+    if gat_impl == "pallas_mxu":
+        return functools.partial(gat_conv_group, mxu=True)
+    if gat_impl == "naive":
+        return gat_conv_naive
+    if gat_impl == "fast":
+        return gat_conv
+    if gat_impl in ("sep", "sep_fast"):
+        return functools.partial(gat_conv_sep, fast=gat_impl == "sep_fast")
+    base, at, gc = gat_impl.partition("@")
+    if base in ("pallas_sep", "pallas_sep_fast"):
+        if at and not (gc.isascii() and gc.isdigit() and int(gc) >= 1):
+            raise ValueError(f"gat_impl {gat_impl!r}: the group chunk after '@' "
+                             "must be an integer >= 1")
+        return functools.partial(gat_conv_group_sep, fast=base == "pallas_sep_fast")
+    if gat_impl in ("chunked", "bf16"):
+        raise NotImplementedError(f"gat_impl {gat_impl!r} waits for a later slice of "
+                                  "the port (ROADMAP queue 5)")
+    raise ValueError(f"unknown gat_impl {gat_impl!r}")
+
+
 class RegretGNN(nn.Module):
-    """Eval-only model; its GATConv runs through the group kernel
-    (`ops.gat_group.gat_conv_group`: the CUDA kernel on the card, the plain
-    twin on the CPU)."""
+    """Eval-only model.  Its GATConv runs through the route `gat_impl` names
+    (`gat_conv_for`); the default is the group kernel (K2 or K3 on the card,
+    the plain twin on the CPU)."""
 
     def __init__(self, cfg: RegretGNNConfig):
         super().__init__()
@@ -89,23 +131,29 @@ class RegretGNN(nn.Module):
         self.decision = Linear(cfg.embed_dim, cfg.out_dim)
         self.eval()
 
-    def forward(self, x: torch.Tensor, taps: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
-        """x (B, E, in_dim) -> (B, E, out_dim).  `taps` collects the embedding
-        and every layer's output when a list is given."""
+    def forward(self, x: torch.Tensor, taps: Optional[List[torch.Tensor]] = None,
+                gat_impl: str = "auto") -> torch.Tensor:
+        """x (B, E, in_dim) or (E, in_dim) -> (B, E, out_dim) or (E, out_dim).
+        `taps` collects the embedding and every layer's output when a list is
+        given, with x's batch axes."""
         if self.training:
             raise NotImplementedError("training mode waits for the training "
                                       "slice of the port; call .eval()")
+        conv = gat_conv_for(gat_impl)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[None]
         exact_f32_matmuls()
         topo = build_topology(n_from_edges(x.shape[-2]))
+        unbatch = (lambda t: t[0]) if squeeze else (lambda t: t)  # noqa: E731
         h = self.embed(x)
         if taps is not None:
-            taps.append(h)
+            taps.append(unbatch(h))
         for layer in self.layers:
-            h = h + gat_conv_group(layer.gat.params(), topo, h, self.cfg.n_heads)
+            h = h + conv(layer.gat.params(), topo, h, self.cfg.n_heads)
             h = layer.bn1(h)
             h = h + layer.ffn2(torch.relu(layer.ffn1(h)))
             h = layer.bn2(h)
             if taps is not None:
-                taps.append(h)
-        return self.decision(h)
+                taps.append(unbatch(h))
+        return unbatch(self.decision(h))

@@ -9,13 +9,17 @@ i and sources j of the group (i == j excluded):
 
 K2 (gnngls_tpu/ops/pallas_gat.py::_group_kernel) computes them in one shot;
 K3 (`_group_kernel_chunked`) streams the sources in chunks of gs and merges
-the chunks' partials online, flash-style.  Both without the TPU's lane
-replication: m and z are (B, n, g, H), num is (B, n, g, H, F).  The two
+the chunks' partials online, flash-style; K4 (`_group_kernel_mxu`) computes
+K2's partials with num as one (g x g) @ (g x F) product per head.  All
+without the TPU's lane replication: m and z are (B, n, g, H), num is
+(B, n, g, H, F).  The two
 groups of an edge are merged outside the kernels by max-rescaling, as the JAX
 package does (pallas_gat.py:263-275): `merge_group_partials`.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -25,7 +29,6 @@ from .gat import GATParams, leaky, project, topo_index
 
 KERNEL_F = (8, 16, 32)  # head widths the kernels are instantiated for
 CHUNKED_MAX_GS = 256  # csrc/gat_group_chunked.cu's kMaxGs
-_SMEM_LIMIT = 227 * 1024
 
 
 def gat_group_partials_plain(el, er, h, city_edges):
@@ -39,6 +42,21 @@ def gat_group_partials_plain(el, er, h, city_edges):
     m = s.amax(dim=3)
     p = torch.exp(s - m[:, :, :, None, :])
     return m, p.sum(dim=3), torch.einsum("bnijh,bnjhf->bnihf", p, h_c)
+
+
+def gat_group_partials_mxu_plain(el, er, h, city_edges):
+    """K4's partials as _group_kernel_mxu computes them: the score tile with
+    the self pair at -3.0e38, its row max m, p = exp(s - m), z = sum_j p, and
+    num as one (g x g) @ (g x F) product per head."""
+    ce = city_edges.long()
+    g = ce.shape[1]
+    el_c, er_c = el[:, ce].transpose(2, 3), er[:, ce].transpose(2, 3)  # (B, n, H, g)
+    s = leaky(er_c[..., :, None] + el_c[..., None, :])  # (B, n, H, tgt, src)
+    s = s.masked_fill(torch.eye(g, dtype=torch.bool, device=el.device), -3.0e38)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    num = torch.matmul(p, h[:, ce].transpose(2, 3))  # (B, n, H, g, F)
+    return m.transpose(2, 3), p.sum(dim=-1).transpose(2, 3), num.transpose(2, 3)
 
 
 def source_chunk(n: int, hf: int) -> int:
@@ -139,17 +157,16 @@ def _empty_partials(h, city_edges):
 def gat_group_partials(el, er, h, city_edges):
     """el, er (B, E, H) f32, h (B, E, H, F) f32, city_edges (n, g) int32.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel, or raise.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel, or raise
+    (ValueError where a block of this shape does not fit the device's shared
+    memory; the source-chunked partials run at any n).
     """
     _check_inputs(el, er, h, city_edges)
     dev = _card("gat_group_partials", el, er, h, city_edges)
     if dev is None:
         return gat_group_partials_plain(el, er, h, city_edges)
     B, E, H, F = h.shape
-    n, g = city_edges.shape
-    if g * (F + 2) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"gat_group_partials: n={n} needs more shared memory than a "
-                         "block has; the source-chunked partials run at any n")
+    n = city_edges.shape[0]
     m, z, num = _empty_partials(h, city_edges)
     if B == 0:
         return m, z, num
@@ -159,6 +176,32 @@ def gat_group_partials(el, er, h, city_edges):
         dev.index, kernels.stream_of(el))
     kernels.check(err, "gat_group_launch")
     kernels.launches["gat_group"] += 1
+    return m, z, num
+
+
+def gat_group_partials_mxu(el, er, h, city_edges):
+    """K4: K2's partials with num as per-head matrix products.  Inputs and
+    outputs as `gat_group_partials`.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel
+    (csrc/gat_group_mxu.cu), or raise (ValueError where the g x g score tile
+    does not fit a block's shared memory: n above about 230 at F=16).
+    """
+    _check_inputs(el, er, h, city_edges)
+    dev = _card("gat_group_partials_mxu", el, er, h, city_edges)
+    if dev is None:
+        return gat_group_partials_mxu_plain(el, er, h, city_edges)
+    B, E, H, F = h.shape
+    n = city_edges.shape[0]
+    m, z, num = _empty_partials(h, city_edges)
+    if B == 0:
+        return m, z, num
+    err = kernels.library().gat_group_mxu_launch(
+        el.data_ptr(), er.data_ptr(), h.data_ptr(), city_edges.data_ptr(),
+        B, n, E, H, F, m.data_ptr(), z.data_ptr(), num.data_ptr(),
+        dev.index, kernels.stream_of(el))
+    kernels.check(err, "gat_group_mxu_launch")
+    kernels.launches["gat_group_mxu"] += 1
     return m, z, num
 
 
@@ -208,17 +251,30 @@ def merge_group_partials(m, z, num, topo: LineGraphTopology):
 
 
 def gat_conv_group(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
-                   n_heads: int, src_chunk: int = 0) -> torch.Tensor:
+                   n_heads: int, src_chunk: int = 0, mxu: bool = False) -> torch.Tensor:
     """GATConv through the group partials: x (B, E, C_in) -> (B, E, H*F).
 
     src_chunk dispatches as gat_conv_pallas does: 0 takes `source_chunk`'s
-    rule (one-shot K2, or K3 with its gs); > 0 takes K3 with that gs."""
+    rule (one-shot K2, or K3 with its gs); > 0 takes K3 with that gs.
+    mxu=True takes K4 for the one-shot partials; where the rule picks a
+    chunk it warns and takes K3, and an explicit src_chunk > 0 raises
+    (pallas_gat.py:229-244): K4 has no chunked form."""
     h, el, er = project(p, x, n_heads)
     city = topo_index(topo, x.device, "city_edges", torch.int32)
+    if mxu and src_chunk:
+        raise ValueError("mxu=True is incompatible with src_chunk > 0: the per-head "
+                         "matmul partials (K4) have no chunked form; pass src_chunk=0 "
+                         "or mxu=False")
     gs = src_chunk or source_chunk(topo.n, h.shape[-2] * h.shape[-1])
+    if mxu and gs:
+        warnings.warn(f"pallas_mxu: n={topo.n} is past the one-shot partials; running "
+                      "the source-chunked partials (K3): K4 has no chunked form",
+                      stacklevel=2)
     args = (el.contiguous(), er.contiguous(), h.contiguous(), city)
     if gs:
         m, z, num = gat_group_partials_chunked(*args, gs)
+    elif mxu:
+        m, z, num = gat_group_partials_mxu(*args)
     else:
         m, z, num = gat_group_partials(*args)
     return merge_group_partials(m, z, num, topo)

@@ -16,7 +16,10 @@ from gnngls_tpu_torch.core.graph import build_topology
 from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
 from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partials_chunked,
                                             gat_group_partials_chunked_plain,
+                                            gat_group_partials_mxu,
+                                            gat_group_partials_mxu_plain,
                                             gat_group_partials_plain)
+from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
 from gnngls_tpu_torch.search.local_search import gls_fixed_plain
@@ -83,6 +86,79 @@ def test_gat_group_chunked_kernel_matches_plain(cuda, n, H, F, gs):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)  # the same maxima
     for a, b in zip(got[1:], want[1:]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def _group_inputs(n, H, F, B, seed, spread, dev):
+    rng = np.random.default_rng(seed)
+    E = n * (n - 1) // 2
+    el, er = (torch.as_tensor(spread * rng.standard_normal((B, E, H)), dtype=torch.float32,
+                              device=dev) for _ in range(2))
+    h = torch.as_tensor(rng.standard_normal((B, E, H, F)), dtype=torch.float32, device=dev)
+    city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=dev)
+    return el, er, h, city
+
+
+@pytest.mark.parametrize("n,H,F", [(5, 2, 8), (10, 4, 8), (50, 8, 16), (100, 8, 16),
+                                   (111, 8, 16), (30, 2, 32)])
+def test_gat_group_mxu_kernel_matches_plain(cuda, n, H, F):
+    args = _group_inputs(n, H, F, 2, n, 3.0, cuda)
+    before = kernels.launches["gat_group_mxu"]
+    got = gat_group_partials_mxu(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["gat_group_mxu"] == before + 1
+    want = gat_group_partials_mxu_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)  # the same max
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("n,H,F,spread", [(5, 2, 8, 1.0), (10, 8, 16, 10.0), (100, 8, 16, 10.0),
+                                          (60, 4, 32, 3.0), (200, 8, 16, 1.0)])
+def test_gat_sep_kernel_matches_plain(cuda, n, H, F, spread, fast):
+    """f32 and bf16 payloads: m exactly, z and num within 1e-5 of the largest
+    value (the same payload bits, summed in another order)."""
+    args = _group_inputs(n, H, F, 2, n + 1, spread, cuda)
+    before = kernels.launches["gat_sep"]
+    got = gat_sep_partials(*args, fast)
+    torch.cuda.synchronize()
+    assert kernels.launches["gat_sep"] == before + 1
+    want = gat_sep_partials_plain(*args, fast)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_gat_sep_kernel_tied_maxima(cuda):
+    """Constant el per group: every element ties at the maximum."""
+    n, H, F = 20, 2, 8
+    el, er, h, city = _group_inputs(n, H, F, 1, 0, 1.0, cuda)
+    el = torch.full_like(el, 0.25)
+    for fast in (False, True):
+        got = gat_sep_partials(el, er, h, city, fast)
+        want = gat_sep_partials_plain(el, er, h, city, fast)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        for a, b in zip(got[1:], want[1:]):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("name,n,F,extra", [("gat_group_mxu", 300, 16, ()),
+                                            ("gat_sep", 900, 32, (False,)),
+                                            ("gat_group", 1800, 32, ())])
+def test_launchers_refuse_a_block_that_does_not_fit(cuda, name, n, F, extra):
+    """Each launcher checks its block's shared memory against the device's
+    opt-in limit; the wrapper raises ValueError and counts no launch."""
+    partials = {"gat_group_mxu": gat_group_partials_mxu, "gat_sep": gat_sep_partials,
+                "gat_group": gat_group_partials}[name]
+    E = n * (n - 1) // 2
+    el = torch.zeros((1, E, 1), device=cuda)
+    city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=cuda)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        partials(el, el, torch.zeros((1, E, 1, F), device=cuda), city, *extra)
+    assert dict(kernels.launches) == before
 
 
 def _gls_case(n, B, G, seed, dev):

@@ -21,9 +21,10 @@ and prints no result line:
   4. both kernels timed (CUDA events) and held against their twins at the
      main path's shapes (K2: B=64 n=100 H=8 F=16; K1: B=500 n=100 G=1
      n_iters=100 pm=20), with their bounds.
-  5. the source-chunked GAT kernel (K3) against its plain twin on the card:
-     layer-0 activations of the checkpoint on two seeded n=500 instances
-     (gs=16, padded) and seeded inputs with a 10x spread (n=40 H=4 F=8 gs=8).
+  5. K3's route, the sorted-prefix GAT kernel (csrc/gat_sorted.cu), against
+     its plain twin and against K3's plain arithmetic on the card: layer-0
+     activations of the checkpoint on two seeded n=500 instances (gs=16)
+     and seeded inputs with a 10x spread (n=40 H=4 F=8 gs=8).
   6. the whole-GLS kernel's global layout: bit for bit equal to the shared
      layout at n=100 (B=8, weight guide and a two-guide cycle), to its plain
      twin at n=500 (B=2, n_iters=3, pm=30), and valid tours at n=1000.
@@ -35,8 +36,10 @@ and prints no result line:
      oracle, moves/s, edges/s, stage times and peak memory.
   8. the n=200 JAX fixture: predictions within 5e-4 and best costs of the
      search equal to gnngls_tpu's (gnngls_tpu_torch/testdata/).
-  9. K3, K2 (the route's alternative) and K1's global layout timed at the
-     tsp500 path's shapes and held against their twins there, with bounds.
+  9. K3's route (the sorted-prefix kernel), K2 (the route's alternative) and
+     K1's global layout timed at the tsp500 path's shapes and held against
+     their twins there (K3's route also against K3's arithmetic), with
+     bounds.
  10. the per-head matmul partials (K4) against their plain twin on seeded
      inputs at n = 10, 50, 100 (B=2); K4 merged against K2 merged on the
      checkpoint's layer 0 at B=64 n=100, both timed there; the pallas_mxu
@@ -47,13 +50,15 @@ and prints no result line:
      test instances at batch 64 (64 K4 launches, no K2), the predictions
      against phase 3's, then nearest neighbour on the regret and the search
      (n_iters 100, pm 20); instances 0-63 held against the JAX fixture.
- 12. the threshold-mask separable partials (K5), f32 and bf16 payloads,
-     against their plain twin: seeded inputs with a 10x logit spread at
-     n = 10 and 100, constant features (tied maxima), and the checkpoint's
-     layer 0 on two n=500 instances and on the n=200 fixture; both modes
-     timed at B=4 n=500, the f32 payloads also on the n=200 fixture (the
-     shape of its launches in phase 13); K5 at n=900 F=32, too large for a
-     block, raises ValueError.
+ 12. K5's route, the sorted-prefix kernel with f32 and bf16 payloads,
+     against its plain twin and against K5's plain arithmetic (the
+     threshold masks): seeded inputs with a 10x logit spread at n = 10 and
+     100, constant features (tied maxima), the checkpoint's layer 0 on two
+     n=500 instances and on the n=200 fixture, and seeded inputs at n=900
+     F=32 (past K5's old block) and n=1100 F=16 (scanned in column slices);
+     both modes timed at B=4 n=500, the f32 payloads also on the n=200
+     fixture (the shape of its launches in phase 13); at n=3100, past the
+     kernel's range, it raises ValueError.
  13. the tsp500 pallas_sep_fast path (benchmarks/tsp500_e2e.py's default
      forward) on phase 7's instances, with the launch counts reset just
      before and read just after: predict_regret(gat_impl="pallas_sep_fast",
@@ -84,9 +89,9 @@ PRED_TOL = 5e-4  # predictions against the JAX fixture (benchmarks/PARITY.md's s
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 K2_REL_TOL = 1e-5  # max |kernel - plain| <= K2_REL_TOL * max |plain|
-K3_REL_TOL = 1e-5  # the same for the source-chunked kernel
+K3_REL_TOL = 1e-5  # the same for K3's route, the sorted-prefix kernel (m equal)
 K4_REL_TOL = 1e-5  # the same for the per-head matmul partials, and K4 merged vs K2 merged
-K5_REL_TOL = 1e-5  # the same for the separable partials, either payload type
+K5_REL_TOL = 1e-5  # the same for K5's route, either payload type (m equal)
 BATCH_SEP = 4  # tsp500_e2e.py's batch
 # K5-bf16 predictions against K3's at n=500: rank agreement, max abs difference
 SPEARMAN_MIN, SEP_FAST_PRED_TOL = 0.9999, 5e-3
@@ -125,6 +130,30 @@ def errs(a, b):
     """(max abs error, max abs error / max |b|)."""
     d = float((a.double() - b.double()).abs().max())
     return d, d / max(float(b.double().abs().max()), 1e-30)
+
+
+def hold(tag, got, wants, topo, tol):
+    """The sorted-prefix kernel's partials against each (name, partials) of
+    wants: m equal, z, num and the merge of the two groups of each edge
+    within tol of the largest reference value, all finite.  Returns the
+    largest absolute difference."""
+    import torch
+
+    from gnngls_tpu_torch.ops.gat_group import merge_group_partials
+
+    worst = 0.0
+    merged = merge_group_partials(*got, topo)
+    for ref, want in wants:
+        require(torch.equal(got[0], want[0]), f"{tag} vs {ref}: the maxima differ")
+        parts = dict(zip(("z", "num"), zip(got[1:], want[1:])))
+        parts["merged"] = (merged, merge_group_partials(*want, topo))
+        for key, (a, b) in parts.items():
+            require(bool(torch.isfinite(a).all()), f"{tag}: {key} not finite")
+            ab, rel = errs(a, b)
+            worst = max(worst, ab)
+            log(f"  {tag} vs {ref}: {key:6s} max abs {ab:.3e}  rel {rel:.3e}")
+            require(rel <= tol, f"{tag} vs {ref} {key}: rel err {rel:.3e} > {tol}")
+    return worst
 
 
 def gat_partials_work(B, n, H, F, h_bytes=4):
@@ -437,7 +466,8 @@ def phase5_gat_chunked(model, dev):
     from gnngls_tpu_torch.core.graph import build_topology
     from gnngls_tpu_torch.ops.gat_group import (gat_group_partials_chunked,
                                                 gat_group_partials_chunked_plain,
-                                                merge_group_partials, source_chunk)
+                                                source_chunk)
+    from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials_plain
 
     worst = 0.0
     coords = np.random.default_rng(SEED500).random((2, N500, 2)).astype(np.float32)
@@ -457,18 +487,11 @@ def phase5_gat_chunked(model, dev):
         for name, n, gs, args in cases:
             got = gat_group_partials_chunked(*args, gs)
             torch.cuda.synchronize()
-            want = gat_group_partials_chunked_plain(*args, gs)
-            require(torch.equal(got[0], want[0]), f"K3 {name}: the maxima differ")
-            parts = dict(zip(("m", "z", "num"), zip(got, want)))
-            topo = build_topology(n)
-            parts["merged"] = (merge_group_partials(*got, topo),
-                               merge_group_partials(*want, topo))
-            for key, (a, b) in parts.items():
-                ab, rel = errs(a, b)
-                worst = max(worst, ab)
-                log(f"  K3 {name}: {key:6s} max abs {ab:.3e}  rel {rel:.3e}")
-                require(rel <= K3_REL_TOL, f"K3 {name} {key}: rel err {rel:.3e} > {K3_REL_TOL}")
-    log(f"phase 5: K3 matches its plain twin (rel tol {K3_REL_TOL})")
+            wants = [("its twin", gat_sorted_partials_plain(*args)),
+                     ("K3's twin", gat_group_partials_chunked_plain(*args, gs))]
+            worst = max(worst, hold(f"K3 route {name}", got, wants, build_topology(n),
+                                    K3_REL_TOL))
+    log(f"phase 5: K3's route matches its twin and K3's arithmetic (rel tol {K3_REL_TOL})")
     return worst
 
 
@@ -616,14 +639,16 @@ def phase8_fixture200(model, dev):
 
 
 def phase9_timings500(model, data, out, counts7, k3_err, dev):
-    """K3 and K2 at B=16 n=500 H=8 F=16 on the path's layer-0 activations;
-    K1's global layout at the eval and the oracle launches."""
+    """K3's route (the sorted-prefix kernel) and K2 at B=16 n=500 H=8 F=16 on
+    the path's layer-0 activations; K1's global layout at the eval and the
+    oracle launches."""
     import numpy as np
     import torch
 
     from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partials_chunked,
                                                 gat_group_partials_chunked_plain,
                                                 merge_group_partials, source_chunk)
+    from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials_plain
     from gnngls_tpu_torch.core.graph import build_topology
     from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
     from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
@@ -634,31 +659,31 @@ def phase9_timings500(model, data, out, counts7, k3_err, dev):
     gs = source_chunk(n, model.cfg.embed_dim)
     args = layer0_inputs(model, data["coords"][:BATCH500], dev)
     B, E, H, F = args[2].shape
+    topo = build_topology(n)
+    tag = f"K3 route at B={B} n={n}"
     with torch.no_grad():
         k3_ms = cuda_ms(lambda: gat_group_partials_chunked(*args, gs), reps=5, warmup=1)
         k2_ms = cuda_ms(lambda: gat_group_partials(*args), reps=5, warmup=1)
-        k3_plain = cuda_ms(lambda: gat_group_partials_chunked_plain(*args, gs), reps=1)
+        k3_plain = cuda_ms(lambda: gat_sorted_partials_plain(*args), reps=1)
+        k3_twin_ms = cuda_ms(lambda: gat_group_partials_chunked_plain(*args, gs), reps=1)
         got = gat_group_partials_chunked(*args, gs)
-        want = gat_group_partials_chunked_plain(*args, gs)
-        require(torch.equal(got[0], want[0]), f"K3 at B={B} n={n}: the maxima differ")
-        for key, a, b in zip(("m", "z", "num"), got, want):
-            ab, rel = errs(a, b)
-            k3_err = max(k3_err, ab)
-            require(rel <= K3_REL_TOL, f"K3 at B={B} n={n}: {key} rel err {rel:.3e}")
-        del want
-        topo = build_topology(n)
+        k3_err = max(k3_err, hold(tag, got, [("its twin", gat_sorted_partials_plain(*args))],
+                                  topo, K3_REL_TOL))
+        k3_err = max(k3_err, hold(tag, got, [
+            ("K3's twin", gat_group_partials_chunked_plain(*args, gs))], topo, K3_REL_TOL))
         ab, rel = errs(merge_group_partials(*got, topo),
                        merge_group_partials(*gat_group_partials(*args), topo))
-        require(rel <= K3_REL_TOL, f"K3 and K2 at n={n} disagree: rel {rel:.3e}")
+        require(rel <= K3_REL_TOL, f"K3's route and K2 at n={n} disagree: rel {rel:.3e}")
+        del got
     k3_ops, k3_bytes = gat_partials_work(B, n, H, F)
-    log(f"  K3 at B={B} n={n} H={H} F={F} gs={gs}: {k3_ms:.4f} ms/launch, plain "
-        f"{k3_plain:.3f} ms; K2 (one-shot) at the same shape {k2_ms:.4f} ms; "
-        f"merged K3 vs K2 rel {rel:.3e}")
+    log(f"  K3 route (csrc/gat_sorted.cu) at B={B} n={n} H={H} F={F} gs={gs}: {k3_ms:.4f} "
+        f"ms/launch, its twin {k3_plain:.3f} ms, K3's arithmetic {k3_twin_ms:.3f} ms; K2 "
+        f"(one-shot) at the same shape {k2_ms:.4f} ms; merged vs K2 rel {rel:.3e}")
 
-    rows = [row("gat_group_chunked", "gnngls_tpu_torch/csrc/gat_group_chunked.cu",
+    rows = [row("gat_group_chunked", "gnngls_tpu_torch/csrc/gat_sorted.cu",
                 "gnngls_tpu/ops/pallas_gat.py:79", counts7.get("gat_group_chunked", 0), k3_err,
                 k3_ms, k3_plain, k3_ops, k3_bytes, f"B={B} n={n} H={H} F={F} gs={gs}",
-                one_shot_k2_ms=k2_ms)]
+                one_shot_k2_ms=k2_ms, k3_arithmetic_plain_ms=k3_twin_ms)]
     Dt = torch.as_tensor(coords_to_distance_matrix(data["coords"]), device=dev)
     launches = (
         ("eval", torch.as_tensor(np.ascontiguousarray(out["guide_stack"], dtype=np.float32),
@@ -851,16 +876,17 @@ def phase11_mxu_path(model, ds, dev, k2_preds):
 
 
 def phase12_sep(model, data, dev):
-    """K5 against its twin in both payload modes; both timed at B=4 n=500,
-    the f32 payloads also at B=2 n=200, the shape of the path that counts
-    their launches (phase 13's n=200 fixture prediction)."""
+    """K5's route (the sorted-prefix kernel) against its twin and K5's
+    arithmetic in both payload modes; both timed at B=4 n=500, the f32
+    payloads also at B=2 n=200, the shape of the path that counts their
+    launches (phase 13's n=200 fixture prediction)."""
     import numpy as np
     import torch
 
     from gnngls_tpu_torch.core.graph import build_topology
     from gnngls_tpu_torch.ops.gat import project
-    from gnngls_tpu_torch.ops.gat_group import merge_group_partials
     from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
+    from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials_plain
 
     worst = {False: 0.0, True: 0.0}
     rng = np.random.default_rng(12)
@@ -868,12 +894,13 @@ def phase12_sep(model, data, dev):
     H = model.cfg.n_heads
     cases = []
     with torch.no_grad():
-        for n in (10, 100):
+        rnd = lambda *shape: torch.as_tensor(  # noqa: E731
+            rng.standard_normal(shape), dtype=torch.float32, device=dev)
+        for B, n, Hs, F, spread in ((2, 10, 8, 16, 10), (2, 100, 8, 16, 10), (1, 900, 2, 32, 3),
+                                    (1, 1100, 2, 16, 3)):
             E = n * (n - 1) // 2
-            rnd = lambda *shape: torch.as_tensor(  # noqa: E731
-                rng.standard_normal(shape), dtype=torch.float32, device=dev)
-            cases.append((f"seeded x10 spread, B=2 n={n} H=8 F=16", n,
-                          (10 * rnd(2, E, 8), 10 * rnd(2, E, 8), rnd(2, E, 8, 16))))
+            cases.append((f"seeded x{spread} spread, B={B} n={n} H={Hs} F={F}", n,
+                          (spread * rnd(B, E, Hs), spread * rnd(B, E, Hs), rnd(B, E, Hs, F))))
         n = 20
         ones = torch.ones((2, n * (n - 1) // 2, model.cfg.embed_dim), device=dev)
         h, el, er = project(layer0, ones, H)
@@ -893,39 +920,36 @@ def phase12_sep(model, data, dev):
             for fast in (False, True):
                 got = gat_sep_partials(*args, fast)
                 torch.cuda.synchronize()
-                want = gat_sep_partials_plain(*args, fast)
-                mode = "bf16" if fast else "f32"
-                require(torch.equal(got[0], want[0]), f"K5 {mode} {name}: m differs")
-                parts = dict(zip(("z", "num"), zip(got[1:], want[1:])))
-                parts["merged"] = (merge_group_partials(*got, topo),
-                                   merge_group_partials(*want, topo))
-                for key, (a, b) in parts.items():
-                    require(bool(torch.isfinite(a).all()), f"K5 {mode} {name}: {key} not finite")
-                    ab, rel = errs(a, b)
-                    worst[fast] = max(worst[fast], ab)
-                    log(f"  K5 {mode} {name}: {key:6s} max abs {ab:.3e}  rel {rel:.3e}")
-                    require(rel <= K5_REL_TOL, f"K5 {mode} {name} {key}: rel err {rel:.3e}")
-            del got, want
+                wants = [("its twin", gat_sorted_partials_plain(*args, fast)),
+                         ("K5's twin", gat_sep_partials_plain(*args, fast))]
+                tag = f"K5 route {'bf16' if fast else 'f32'} {name}"
+                worst[fast] = max(worst[fast], hold(tag, got, wants, topo, K5_REL_TOL))
+                del got, wants
         args = layer0_inputs(model, data["coords"][:BATCH_SEP], dev)
         B, E, H, F = args[2].shape
+        topo = build_topology(N500)
         timed = {}
         for fast in (False, True):
+            mode = "bf16" if fast else "f32"
             ms = cuda_ms(lambda: gat_sep_partials(*args, fast), reps=10, warmup=2)
-            plain = cuda_ms(lambda: gat_sep_partials_plain(*args, fast), reps=1)
-            for key, a, b in zip(("m", "z", "num"), gat_sep_partials(*args, fast),
-                                 gat_sep_partials_plain(*args, fast)):
-                ab, rel = errs(a, b)
-                worst[fast] = max(worst[fast], ab)
-                require(rel <= K5_REL_TOL, f"K5 at B={B} n={N500} fast={fast}: {key} rel {rel:.3e}")
-            timed[fast] = (ms, plain, *gat_partials_work(B, N500, H, F, 2 if fast else 4))
-            log(f"  K5 {'bf16' if fast else 'f32'} at B={B} n={N500} H={H} F={F}: {ms:.4f} "
-                f"ms/launch, plain {plain:.3f} ms")
+            plain = cuda_ms(lambda: gat_sorted_partials_plain(*args, fast), reps=1)
+            k5_plain = cuda_ms(lambda: gat_sep_partials_plain(*args, fast), reps=1)
+            wants = [("its twin", gat_sorted_partials_plain(*args, fast)),
+                     ("K5's twin", gat_sep_partials_plain(*args, fast))]
+            worst[fast] = max(worst[fast], hold(f"K5 route {mode} at B={B} n={N500}",
+                                                gat_sep_partials(*args, fast), wants, topo,
+                                                K5_REL_TOL))
+            timed[fast] = (ms, plain, *gat_partials_work(B, N500, H, F, 2 if fast else 4),
+                           k5_plain)
+            log(f"  K5 route {mode} at B={B} n={N500} H={H} F={F}: {ms:.4f} ms/launch, its "
+                f"twin {plain:.3f} ms, K5's arithmetic {k5_plain:.3f} ms")
         fx_ms = cuda_ms(lambda: gat_sep_partials(*fx_args, False), reps=10, warmup=2)
-        fx_plain = cuda_ms(lambda: gat_sep_partials_plain(*fx_args, False), reps=1)
+        fx_plain = cuda_ms(lambda: gat_sorted_partials_plain(*fx_args, False), reps=1)
         fx_shape = f"B={fx_coords.shape[0]} n={n_fx} H={H} F={F}"
-        log(f"  K5 f32 at {fx_shape}: {fx_ms:.4f} ms/launch, plain {fx_plain:.3f} ms")
-        require_too_large(gat_sep_partials, 900, 32, dev, False)
-    log(f"phase 12: K5 matches its plain twin in both modes (rel tol {K5_REL_TOL})")
+        log(f"  K5 route f32 at {fx_shape}: {fx_ms:.4f} ms/launch, its twin {fx_plain:.3f} ms")
+        require_too_large(gat_sep_partials, 3100, 8, dev, False)
+    log(f"phase 12: K5's route matches its twin and K5's arithmetic in both modes (rel tol "
+        f"{K5_REL_TOL}), n=900 F=32 and n=1100 F=16 included")
     fx_bound = bound(*gat_partials_work(fx_coords.shape[0], n_fx, H, F))[0]
     return worst, timed, f"B={B} n={N500} H={H} F={F}", (fx_ms, fx_plain, fx_bound, fx_shape)
 
@@ -1038,20 +1062,21 @@ def main() -> int:
         rows.append(row("gat_group_mxu", "gnngls_tpu_torch/csrc/gat_group_mxu.cu",
                         "gnngls_tpu/ops/pallas_gat.py:143", counts11.get("gat_group_mxu", 0),
                         k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape, k2_same_shape_ms=k2_same))
-        ms, plain, ops, nbytes = k5_timed[True]
-        rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sep.cu",
+        ms, plain, ops, nbytes, k5_plain = k5_timed[True]
+        rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sorted.cu",
                         "gnngls_tpu/ops/pallas_gat_sep.py:48", counts13.get("gat_sep", 0),
                         k5_err[True], ms, plain, ops, nbytes,
-                        f"bf16 payloads, {k5_shape}; launches from phase 13's n=500 path"))
-        ms, plain, ops, nbytes = k5_timed[False]
+                        f"bf16 payloads, {k5_shape}; launches from phase 13's n=500 path",
+                        k5_arithmetic_plain_ms=k5_plain))
+        ms, plain, ops, nbytes, k5_plain = k5_timed[False]
         fx_ms, fx_plain, fx_bound, fx_shape = k5_fx
-        rows.append(row("gat_sep_f32", "gnngls_tpu_torch/csrc/gat_sep.cu",
+        rows.append(row("gat_sep_f32", "gnngls_tpu_torch/csrc/gat_sorted.cu",
                         "gnngls_tpu/ops/pallas_gat_sep.py:48", counts200.get("gat_sep", 0),
                         k5_err[False], ms, plain, ops, nbytes,
                         f"f32 payloads, {k5_shape}; launches from phase 13's pallas_sep "
                         f"prediction of the n=200 fixture ({fx_shape}, timed there too)",
-                        launch_shape_ms=fx_ms, launch_shape_plain_ms=fx_plain,
-                        launch_shape_bound_ms=fx_bound))
+                        k5_arithmetic_plain_ms=k5_plain, launch_shape_ms=fx_ms,
+                        launch_shape_plain_ms=fx_plain, launch_shape_bound_ms=fx_bound))
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
         log(f"phase 13: done on {card}")

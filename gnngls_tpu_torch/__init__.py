@@ -7,9 +7,9 @@ over the K_n line graph predicts per-edge regret, and a fixed-budget Guided
 Local Search consumes it.  Its hot spots are CUDA kernels written by hand,
 each with a plain PyTorch twin in the same module that runs whenever the
 tensors lie on the CPU: the GAT group partials, one-shot
-(`csrc/gat_group.cu`) or with sources in chunks for large n
-(`csrc/gat_group_chunked.cu`), and the whole GLS (`csrc/gls_whole.cu`), whose
-state lives in shared memory up to n=138 and in global memory up to n=1024.
+(`csrc/gat_group.cu`) or, for large n, by sorted prefix sums
+(`csrc/gat_sorted.cu`), and the whole GLS (`csrc/gls_whole.cu`), whose state
+lives in shared memory up to n=138 and in global memory up to n=1024.
 
 Subpackages:
   core     static K_n line-graph topology, feature scalers

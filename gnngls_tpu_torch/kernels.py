@@ -26,8 +26,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gat_group.cu", "gat_group_chunked.cu", "gat_group_mxu.cu", "gat_sep.cu",
-           "gls_whole.cu")
+SOURCES = ("gat_group.cu", "gat_group_mxu.cu", "gat_sorted.cu", "gls_whole.cu")
 HEADERS = ("smem.cuh",)
 SMEM_EXCEEDED = 9000  # csrc/smem.cuh's kSmemExceeded: a block's shared memory does not fit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,12 +88,12 @@ def library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gat_group_launch.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, I, P]
     lib.gat_group_launch.restype = I
-    lib.gat_group_chunked_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
-    lib.gat_group_chunked_launch.restype = I
     lib.gat_group_mxu_launch.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P, I, P]
     lib.gat_group_mxu_launch.restype = I
-    lib.gat_sep_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
-    lib.gat_sep_launch.restype = I
+    lib.gat_sorted_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, I, P]
+    lib.gat_sorted_launch.restype = I
+    lib.gat_sorted_max_n.argtypes = [I, I]
+    lib.gat_sorted_max_n.restype = I
     lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I, I, P,
                                      P, P, P, P, P, P, I, P]
     lib.gls_whole_launch.restype = I

@@ -9,6 +9,8 @@ destination's line-graph neighbours (never itself), weighted feature sum.
   (n-1) x (n-1) group S_u with the self pair masked, stabilised by the max
   over both groups of each destination.
 The main path runs `ops.gat_group.gat_conv_group` instead (the CUDA kernel).
+The checks of the group partials' inputs, shared by their kernels'
+wrappers, sit at the end.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from ..core.graph import LineGraphTopology
 
 LEAKY_SLOPE = 0.2
+KERNEL_F = (8, 16, 32)  # head widths the group-partials kernels are instantiated for
 
 
 class GATParams(NamedTuple):
@@ -86,3 +89,46 @@ def gat_conv(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
     num = num_flat[..., su, :, :] + num_flat[..., sv, :, :]
     out = num / z[..., None]
     return out.reshape(out.shape[:-2] + (-1,))
+
+
+def _check_inputs(el, er, h, city_edges):
+    if any(t.dtype != torch.float32 for t in (el, er, h)):
+        raise TypeError("gat_group_partials: el, er and h must be float32")
+    if city_edges.dtype != torch.int32:
+        raise TypeError("gat_group_partials: city_edges must be int32")
+    if el.dim() != 3 or h.dim() != 4 or city_edges.dim() != 2:
+        raise ValueError("gat_group_partials: expected el/er (B,E,H), "
+                         "h (B,E,H,F), city_edges (n,g)")
+    n, g = city_edges.shape
+    if er.shape != el.shape or h.shape[:3] != el.shape or g != n - 1 \
+            or el.shape[1] != n * (n - 1) // 2:
+        raise ValueError(f"gat_group_partials: inconsistent shapes el {tuple(el.shape)}, "
+                         f"er {tuple(er.shape)}, h {tuple(h.shape)}, "
+                         f"city_edges {tuple(city_edges.shape)}")
+
+
+def _card(what, el, er, h, city_edges):
+    """None when every tensor lies on the CPU (the plain twin runs), else the
+    one CUDA device they all lie on; raises otherwise or on a head width the
+    kernels are not built for."""
+    tensors = (el, er, h, city_edges)
+    if all(t.device.type == "cpu" for t in tensors):
+        return None
+    dev = el.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: all tensors must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if h.shape[3] not in KERNEL_F:
+        raise ValueError(f"{what}: head width F={h.shape[3]} not in {KERNEL_F}")
+    return dev
+
+
+def _empty_partials(h, city_edges):
+    """Uninitialised m, z (B, n, g, H) and num (B, n, g, H, F) on h's device."""
+    B, _, H, F = h.shape
+    n, g = city_edges.shape
+    m = torch.empty((B, n, g, H), device=h.device, dtype=torch.float32)
+    num = torch.empty((B, n, g, H, F), device=h.device, dtype=torch.float32)
+    return m, torch.empty_like(m), num

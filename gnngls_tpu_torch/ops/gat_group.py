@@ -1,5 +1,5 @@
-"""GAT group partials: the CUDA kernels that replace K2 and K3, their plain
-twins, and the merge of each edge's two groups.
+"""GAT group partials: the CUDA kernels that replace K2 and K4, the route of
+K3, the plain twins of all three, and the merge of each edge's two groups.
 
 For each (batch b, city u) group of g = n-1 edges and each head, with targets
 i and sources j of the group (i == j excluded):
@@ -10,11 +10,13 @@ i and sources j of the group (i == j excluded):
 K2 (gnngls_tpu/ops/pallas_gat.py::_group_kernel) computes them in one shot;
 K3 (`_group_kernel_chunked`) streams the sources in chunks of gs and merges
 the chunks' partials online, flash-style; K4 (`_group_kernel_mxu`) computes
-K2's partials with num as one (g x g) @ (g x F) product per head.  All
-without the TPU's lane replication: m and z are (B, n, g, H), num is
-(B, n, g, H, F).  The two
-groups of an edge are merged outside the kernels by max-rescaling, as the JAX
-package does (pallas_gat.py:263-275): `merge_group_partials`.
+K2's partials with num as one (g x g) @ (g x F) product per head.  On the
+card K2 and K4 have kernels of their own, and K3's route runs the
+sorted-prefix kernel of ops/gat_sorted.py, which gives the same partials.
+All without the TPU's lane replication: m and z are (B, n, g, H), num is
+(B, n, g, H, F).  The two groups of an edge are merged outside the kernels
+by max-rescaling, as the JAX package does (pallas_gat.py:263-275):
+`merge_group_partials`.
 """
 
 from __future__ import annotations
@@ -25,10 +27,8 @@ import torch
 
 from .. import kernels
 from ..core.graph import LineGraphTopology
-from .gat import GATParams, leaky, project, topo_index
-
-KERNEL_F = (8, 16, 32)  # head widths the kernels are instantiated for
-CHUNKED_MAX_GS = 256  # csrc/gat_group_chunked.cu's kMaxGs
+from .gat import GATParams, _card, _check_inputs, _empty_partials, leaky, project, topo_index
+from .gat_sorted import gat_sorted_partials
 
 
 def gat_group_partials_plain(el, er, h, city_edges):
@@ -81,7 +81,9 @@ def gat_group_partials_chunked_plain(el, er, h, city_edges, gs: int):
     every later chunk merges into it: m' = max(m, m_k),
     z' = z e^(m-m') + z_k e^(m_k-m'), likewise num.  A chunk whose only real
     source is the target gets a finite m_k from its padded lanes, and the
-    merge weighs it by e^(m_k-m') = 0."""
+    merge weighs it by e^(m_k-m') = 0.  It is the plain arithmetic of the
+    TPU kernel, which tests hold the sorted-prefix kernel against; no
+    wrapper runs it."""
     ce = city_edges.long()
     g = ce.shape[1]
     K = -(-g // gs)
@@ -111,55 +113,12 @@ def gat_group_partials_chunked_plain(el, er, h, city_edges, gs: int):
     return m, z, num
 
 
-def _check_inputs(el, er, h, city_edges):
-    if any(t.dtype != torch.float32 for t in (el, er, h)):
-        raise TypeError("gat_group_partials: el, er and h must be float32")
-    if city_edges.dtype != torch.int32:
-        raise TypeError("gat_group_partials: city_edges must be int32")
-    if el.dim() != 3 or h.dim() != 4 or city_edges.dim() != 2:
-        raise ValueError("gat_group_partials: expected el/er (B,E,H), "
-                         "h (B,E,H,F), city_edges (n,g)")
-    n, g = city_edges.shape
-    if er.shape != el.shape or h.shape[:3] != el.shape or g != n - 1 \
-            or el.shape[1] != n * (n - 1) // 2:
-        raise ValueError(f"gat_group_partials: inconsistent shapes el {tuple(el.shape)}, "
-                         f"er {tuple(er.shape)}, h {tuple(h.shape)}, "
-                         f"city_edges {tuple(city_edges.shape)}")
-
-
-def _card(what, el, er, h, city_edges):
-    """None when every tensor lies on the CPU (the plain twin runs), else the
-    one CUDA device they all lie on; raises otherwise or on a head width the
-    kernels are not built for."""
-    tensors = (el, er, h, city_edges)
-    if all(t.device.type == "cpu" for t in tensors):
-        return None
-    dev = el.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{what}: all tensors must be on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: tensors must be contiguous")
-    if h.shape[3] not in KERNEL_F:
-        raise ValueError(f"{what}: head width F={h.shape[3]} not in {KERNEL_F}")
-    return dev
-
-
-def _empty_partials(h, city_edges):
-    """Uninitialised m, z (B, n, g, H) and num (B, n, g, H, F) on h's device."""
-    B, _, H, F = h.shape
-    n, g = city_edges.shape
-    m = torch.empty((B, n, g, H), device=h.device, dtype=torch.float32)
-    num = torch.empty((B, n, g, H, F), device=h.device, dtype=torch.float32)
-    return m, torch.empty_like(m), num
-
-
 def gat_group_partials(el, er, h, city_edges):
     """el, er (B, E, H) f32, h (B, E, H, F) f32, city_edges (n, g) int32.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel, or raise
     (ValueError where a block of this shape does not fit the device's shared
-    memory; the source-chunked partials run at any n).
+    memory; K3's route, the sorted-prefix partials, runs far past it).
     """
     _check_inputs(el, er, h, city_edges)
     dev = _card("gat_group_partials", el, er, h, city_edges)
@@ -206,32 +165,19 @@ def gat_group_partials_mxu(el, er, h, city_edges):
 
 
 def gat_group_partials_chunked(el, er, h, city_edges, gs: int):
-    """K3: the partials with sources in chunks of gs.  Inputs and outputs as
-    `gat_group_partials`.
+    """K3's route: the partials of `gat_group_partials_chunked_plain`, with
+    inputs and outputs as `gat_group_partials`.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel
-    (csrc/gat_group_chunked.cu), or raise.
+    They run as the sorted prefix sums of ops/gat_sorted.py, which give K3's
+    m bit for bit and its z and num to f32 rounding: CPU tensors take that
+    twin, CUDA tensors launch csrc/gat_sorted.cu (counted as
+    "gat_group_chunked") or raise.  The chunk gs is checked (>= 1) and kept
+    for parity with JAX's src_chunk; like pallas_sep's @gc it changes no
+    number.
     """
-    _check_inputs(el, er, h, city_edges)
     if gs < 1:
         raise ValueError(f"gat_group_partials_chunked: chunk gs={gs} must be >= 1")
-    dev = _card("gat_group_partials_chunked", el, er, h, city_edges)
-    if dev is None:
-        return gat_group_partials_chunked_plain(el, er, h, city_edges, gs)
-    if gs > CHUNKED_MAX_GS:
-        raise ValueError(f"gat_group_partials_chunked: chunk gs={gs} > {CHUNKED_MAX_GS}")
-    B, E, H, F = h.shape
-    n = city_edges.shape[0]
-    m, z, num = _empty_partials(h, city_edges)
-    if B == 0:
-        return m, z, num
-    err = kernels.library().gat_group_chunked_launch(
-        el.data_ptr(), er.data_ptr(), h.data_ptr(), city_edges.data_ptr(),
-        B, n, E, H, F, gs, m.data_ptr(), z.data_ptr(), num.data_ptr(),
-        dev.index, kernels.stream_of(el))
-    kernels.check(err, "gat_group_chunked_launch")
-    kernels.launches["gat_group_chunked"] += 1
-    return m, z, num
+    return gat_sorted_partials(el, er, h, city_edges, counter="gat_group_chunked")
 
 
 def merge_group_partials(m, z, num, topo: LineGraphTopology):

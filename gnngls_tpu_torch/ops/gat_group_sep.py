@@ -1,9 +1,9 @@
-"""Separable GAT through threshold masks: the CUDA kernel that replaces K5
-(gnngls_tpu/ops/pallas_gat_sep.py::_sep_kernel), its plain twin, and the conv.
+"""Separable GAT through threshold masks: K5's plain twin and route, and the
+conv (gnngls_tpu/ops/pallas_gat_sep.py::_sep_kernel).
 
 For each (batch b, city u) group of K = n-1 edges and each head, with targets
 i and sources j of the group, exp(leaky(el_j + er_i)) factors by the sign of
-el_j + er_i, so the kernel never forms a score:
+el_j + er_i, so the TPU kernel never forms a score:
 
     M = max_j el_j, j* its first argmax, M2 = max_{j != j*} el_j,
     m_i = leaky((i == j* ? M2 : M) + er_i),
@@ -17,24 +17,27 @@ to bf16 first and Ah = bf16(bf16(A) h), as the TPU kernel rounds them.  The
 mask products accumulate in f32 and z uses the f32 A and C in both modes.  The
 partials have the contract of ops/gat_group.py's (m, z (B, n, K, H), num
 (B, n, K, H, F)), so `merge_group_partials` merges the two groups of an edge.
+`gat_sep_partials` runs the same function as sorted prefix sums
+(ops/gat_sorted.py, csrc/gat_sorted.cu on the card), with these payloads.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import kernels
 from ..core.graph import LineGraphTopology
-from .gat import LEAKY_SLOPE, GATParams, leaky, project, topo_index
-from .gat_group import _card, _check_inputs, _empty_partials, merge_group_partials
+from .gat import LEAKY_SLOPE, GATParams, _empty_partials, leaky, project, topo_index
+from .gat_group import merge_group_partials
+from .gat_sorted import gat_sorted_partials
 
 _NEG = -3.0e38
 _MASK_ELEMENTS = 2 ** 25  # the twin's (B, cities, K, K, H) mask block, elements
 
 
 def gat_sep_partials_plain(el, er, h, city_edges, fast: bool = False):
-    """The kernel's math in torch, a block of cities at a time so that the
-    (B, cities, K, K, H) masks stay under _MASK_ELEMENTS elements."""
+    """The TPU kernel's math in torch, a block of cities at a time so that
+    the (B, cities, K, K, H) masks stay under _MASK_ELEMENTS elements.  Tests
+    hold the sorted-prefix kernel against it; no wrapper runs it."""
     ce = city_edges.long()
     n, K = ce.shape
     B, _, H, F = h.shape
@@ -78,36 +81,20 @@ def gat_sep_partials_plain(el, er, h, city_edges, fast: bool = False):
 
 
 def gat_sep_partials(el, er, h, city_edges, fast: bool = False):
-    """K5: el, er (B, E, H) f32, h (B, E, H, F) f32, city_edges (n, K)
+    """K5's route: el, er (B, E, H) f32, h (B, E, H, F) f32, city_edges (n, K)
     int32 -> m, z (B, n, K, H), num (B, n, K, H, F).  fast=True takes bf16
-    payloads (h is cast to bf16 here, for the kernel and the twin alike).
+    payloads (h is cast to bf16, for the kernel and the twin alike).
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel
-    (csrc/gat_sep.cu), or raise (ValueError where the group's payloads do
-    not fit a block's shared memory; n <= 1024 fits at F=16).
+    The partials of `gat_sep_partials_plain`, as the sorted prefix sums of
+    ops/gat_sorted.py: CPU tensors take that twin, CUDA tensors launch
+    csrc/gat_sorted.cu (counted as "gat_sep") or raise.
     """
-    _check_inputs(el, er, h, city_edges)
-    dev = _card("gat_sep_partials", el, er, h, city_edges)
-    if dev is None:
-        return gat_sep_partials_plain(el, er, h, city_edges, fast)
-    B, E, H, F = h.shape
-    n = city_edges.shape[0]
-    hv = h.to(torch.bfloat16).contiguous() if fast else h
-    m, z, num = _empty_partials(h, city_edges)
-    if B == 0:
-        return m, z, num
-    err = kernels.library().gat_sep_launch(
-        el.data_ptr(), er.data_ptr(), hv.data_ptr(), city_edges.data_ptr(),
-        B, n, E, H, F, int(fast), m.data_ptr(), z.data_ptr(), num.data_ptr(),
-        dev.index, kernels.stream_of(el))
-    kernels.check(err, "gat_sep_launch")
-    kernels.launches["gat_sep"] += 1
-    return m, z, num
+    return gat_sorted_partials(el, er, h, city_edges, fast, counter="gat_sep")
 
 
 def gat_conv_group_sep(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
                        n_heads: int, fast: bool = False) -> torch.Tensor:
-    """GATConv through K5: x (B, E, C_in) -> (B, E, H*F).  The projection is
+    """GATConv through K5's route: x (B, E, C_in) -> (B, E, H*F).  The projection is
     f32 in both modes, as gnngls_tpu's is on the CPU."""
     h, el, er = project(p, x, n_heads)
     city = topo_index(topo, x.device, "city_edges", torch.int32)

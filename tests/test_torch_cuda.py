@@ -19,7 +19,9 @@ from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partia
                                             gat_group_partials_mxu,
                                             gat_group_partials_mxu_plain,
                                             gat_group_partials_plain)
+from gnngls_tpu_torch.ops.gat_group import merge_group_partials
 from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
+from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials, gat_sorted_partials_plain
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
 from gnngls_tpu_torch.search.local_search import gls_fixed_plain
@@ -145,13 +147,16 @@ def test_gat_sep_kernel_tied_maxima(cuda):
 
 
 @pytest.mark.parametrize("name,n,F,extra", [("gat_group_mxu", 300, 16, ()),
-                                            ("gat_sep", 900, 32, (False,)),
-                                            ("gat_group", 1800, 32, ())])
+                                            ("gat_sep", 3100, 8, (False,)),
+                                            ("gat_group", 1800, 32, ()),
+                                            ("gat_sorted", 2800, 8, (True,))])
 def test_launchers_refuse_a_block_that_does_not_fit(cuda, name, n, F, extra):
     """Each launcher checks its block's shared memory against the device's
-    opt-in limit; the wrapper raises ValueError and counts no launch."""
+    opt-in limit; the wrapper raises ValueError and counts no launch.  K5's
+    route runs the sorted-prefix kernel, which reaches n=2712 with f32
+    payloads and n=2441 with bf16 ones."""
     partials = {"gat_group_mxu": gat_group_partials_mxu, "gat_sep": gat_sep_partials,
-                "gat_group": gat_group_partials}[name]
+                "gat_group": gat_group_partials, "gat_sorted": gat_sorted_partials}[name]
     E = n * (n - 1) // 2
     el = torch.zeros((1, E, 1), device=cuda)
     city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=cuda)
@@ -159,6 +164,94 @@ def test_launchers_refuse_a_block_that_does_not_fit(cuda, name, n, F, extra):
     with pytest.raises(ValueError, match="shared memory"):
         partials(el, el, torch.zeros((1, E, 1, F), device=cuda), city, *extra)
     assert dict(kernels.launches) == before
+
+
+def _hold_sorted(got, want, n):
+    """m equal; z, num and the merged conv within 1e-5 of the largest
+    reference value, all finite."""
+    assert torch.equal(got[0], want[0])
+    topo = build_topology(n)
+    pairs = list(zip(got[1:], want[1:]))
+    pairs.append((merge_group_partials(*got, topo), merge_group_partials(*want, topo)))
+    for a, b in pairs:
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("n,H,F,B", [(10, 8, 16, 2), (100, 8, 16, 2), (500, 8, 16, 1),
+                                     (1100, 2, 16, 1), (900, 2, 32, 1), (3, 1, 8, 3)])
+def test_gat_sorted_kernel_matches_plain(cuda, n, H, F, B, fast):
+    """The sorted-prefix kernel against its twin; n=1100 at F=16 scans its
+    features in column slices, and n=900 at F=32 was past K5's block."""
+    args = _group_inputs(n, H, F, B, n + 3, 3.0, cuda)
+    before = kernels.launches["gat_sorted"]
+    got = gat_sorted_partials(*args, fast)
+    torch.cuda.synchronize()
+    assert kernels.launches["gat_sorted"] == before + 1
+    _hold_sorted(got, gat_sorted_partials_plain(*args, fast), n)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_gat_sorted_kernel_range(cuda, fast):
+    """The library's gat_sorted_max_n is the launcher's own limit on this
+    card: the kernel runs there (in 4-column slices) and refuses one city
+    more.  On an H100 that is n=2712 with f32 payloads, 2441 with bf16."""
+    top = kernels.library().gat_sorted_max_n(int(fast), torch.cuda.current_device())
+    assert top >= 2048
+    for n in (top, top + 1):
+        E = n * (n - 1) // 2
+        el = torch.zeros((1, E, 1), device=cuda)
+        city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=cuda)
+        before = kernels.launches["gat_sorted"]
+        if n > top:
+            with pytest.raises(ValueError, match="shared memory"):
+                gat_sorted_partials(el, el, torch.zeros((1, E, 1, 8), device=cuda), city, fast)
+            assert kernels.launches["gat_sorted"] == before
+        else:
+            m, z, num = gat_sorted_partials(el, el, torch.ones((1, E, 1, 8), device=cuda),
+                                            city, fast)
+            torch.cuda.synchronize()
+            assert kernels.launches["gat_sorted"] == before + 1
+            # every score is leaky(0) = 0: m = 0, z and num count the n - 2 sources
+            assert bool((m == 0).all()) and bool((z == n - 2).all())
+            assert bool((num == n - 2).all())
+
+
+def test_gat_sorted_kernel_on_the_n200_fixture_layer0(cuda):
+    """The shipped tsp100 model's layer-0 el, er and h on the n=200 JAX
+    fixture's instances, both payload modes, against the new twin and the
+    plain arithmetic of K3 and K5."""
+    import pathlib
+
+    from gnngls_tpu_torch.core.scaler import load_scalers
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+    from gnngls_tpu_torch.ops.gat import project
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    coords = np.load(root / "gnngls_tpu_torch/testdata/jax_tsp200_seed3.npz")["coords"]
+    B, n, _ = coords.shape
+    E = n * (n - 1) // 2
+    d = {"coords": coords, "regret": np.zeros((B, E), np.float32),
+         "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
+    ds = TSPDataset.from_arrays(d, scalers=load_scalers(root / "models/tsp100/scalers.json"))
+    model = load_model(root / "models/tsp100/checkpoint_best_val.npz", RegretGNNConfig(),
+                       device=cuda)
+    with torch.no_grad():
+        x = model.embed(torch.as_tensor(ds.get_scaled_batch(np.arange(B))["features"],
+                                        device=cuda))
+        h, el, er = project(model.layers[0].gat.params(), x, model.cfg.n_heads)
+        city = torch.as_tensor(build_topology(n).city_edges, dtype=torch.int32, device=cuda)
+        args = (el.contiguous(), er.contiguous(), h.contiguous(), city)
+        for fast in (False, True):
+            got = gat_sorted_partials(*args, fast)
+            torch.cuda.synchronize()
+            _hold_sorted(got, gat_sorted_partials_plain(*args, fast), n)
+            _hold_sorted(got, gat_sep_partials_plain(*args, fast), n)
+        _hold_sorted(gat_group_partials_chunked(*args, 40),
+                     gat_group_partials_chunked_plain(*args, 40), n)
 
 
 def _gls_case(n, B, G, seed, dev):

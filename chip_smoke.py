@@ -17,7 +17,9 @@ and prints no result line:
      instances with the shipped checkpoint, guide regret_pred, n_iters=100,
      perturbation_moves=20, batch_size=64, with the launch counts reset just
      before and read just after; tours checked, and instances 0-63 held
-     against the committed JAX fixture (mean gap within 0.1 pp).
+     against the committed JAX fixture (mean gap within 0.1 pp); the gap
+     and the fixture count printed beside those of the kernels before K1's
+     and K2's redesign for the H100.
   4. both kernels timed (CUDA events) and held against their twins at the
      main path's shapes (K2: B=64 n=100 H=8 F=16; K1: B=500 n=100 G=1
      n_iters=100 pm=20), with their bounds.
@@ -33,7 +35,8 @@ and prints no result line:
      opt_iters=100) (the GLS oracle), TSPDataset.from_arrays with the tsp100
      scalers and zero regret, and evaluate(guide regret_pred, n_iters=40,
      perturbation_moves=20, batch_size=16); tours checked, gaps against the
-     oracle, moves/s, edges/s, stage times and peak memory.
+     oracle (the mean beside the one before K1's and K2's redesign), moves/s,
+     edges/s, stage times and peak memory.
   8. the n=200 JAX fixture: predictions within 5e-4 and best costs of the
      search equal to gnngls_tpu's (gnngls_tpu_torch/testdata/).
   9. K3's route (the sorted-prefix kernel), K2 (the route's alternative) and
@@ -93,6 +96,9 @@ K3_REL_TOL = 1e-5  # the same for K3's route, the sorted-prefix kernel (m equal)
 K4_REL_TOL = 1e-5  # the same for the per-head matmul partials, and K4 merged vs K2 merged
 K5_REL_TOL = 1e-5  # the same for K5's route, either payload type (m equal)
 BATCH_SEP = 4  # tsp500_e2e.py's batch
+# What the kernels before the H100 redesign of K1 and K2 gave on these paths (NVIDIA H100
+# 80GB HBM3): printed beside this run's figures, which keep the same bits, and not held.
+PARENT_GAP100, PARENT_FIXTURE_EQ, PARENT_GAP500 = (0.3743, 0.1621, 3.6090), 61, 1.2368
 # K5-bf16 predictions against K3's at n=500: rank agreement, max abs difference
 SPEARMAN_MIN, SEP_FAST_PRED_TOL = 0.9999, 5e-3
 FORBIDDEN = ("jax", "gnngls_tpu", "pandas", "networkx", "matplotlib")
@@ -335,7 +341,9 @@ def phase3_main(model, ds, dev):
     tm = out["timings"]
     moves = int(out["moves"].sum())
     edges = len(ds) * n * (n - 1) // 2
-    log(f"  gap mean {gaps.mean():.4f}%  median {np.median(gaps):.4f}%  max {gaps.max():.4f}%")
+    before = " / ".join(f"{x:.4f}" for x in PARENT_GAP100)
+    log(f"  gap mean {gaps.mean():.4f}%  median {np.median(gaps):.4f}%  max {gaps.max():.4f}% "
+        f"(before the redesign of K1 and K2: {before}%)")
     log(f"  inference {tm['inference_s']:.3f} s ({edges / tm['inference_s']:.4g} edges/s); "
         f"search {tm['search_s']:.3f} s ({moves} accepted moves, "
         f"{moves / tm['search_s']:.4g} moves/s)")
@@ -348,7 +356,7 @@ def phase3_main(model, ds, dev):
     my_gap = float(((out["best_costs"][:k] / ds.opt_cost[:k]) - 1.0).mean() * 100.0)
     log(f"  vs JAX fixture (instances 0-{k - 1}): {eq}/{k} best costs equal, largest "
         f"difference {float(np.abs(mine - theirs).max()):.3e}; mean gap {my_gap:.4f}% "
-        f"vs {fx['mean_gap']:.4f}%")
+        f"vs {fx['mean_gap']:.4f}% (before the redesign: {PARENT_FIXTURE_EQ}/{k} equal)")
     require(k == len(fx["best_cost"]) and abs(my_gap - fx["mean_gap"]) <= 0.1,
             "mean gap over 0-63 differs from the JAX fixture by more than 0.1 pp")
     return out, counts
@@ -586,7 +594,8 @@ def phase7_tsp500(model, dev):
     moves = int(out["moves"].sum())
     edges = N_INST500 * N500 * (N500 - 1) // 2
     log(f"  gap vs the oracle (n_iters={ORACLE_ITERS}): mean {gaps.mean():.4f}%  median "
-        f"{np.median(gaps):.4f}%  max {gaps.max():.4f}%")
+        f"{np.median(gaps):.4f}%  max {gaps.max():.4f}% (mean before the redesign of K1 and "
+        f"K2: {PARENT_GAP500:.4f}%)")
     log(f"  inference {tm['inference_s']:.3f} s ({edges / tm['inference_s']:.4g} edges/s); "
         f"search {tm['search_s']:.3f} s ({moves} accepted moves, "
         f"{moves / tm['search_s']:.4g} moves/s); total {tm['total_s']:.3f} s; peak device "

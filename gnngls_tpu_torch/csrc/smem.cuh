@@ -13,13 +13,21 @@
 
 constexpr int kSmemExceeded = 9000;  // in the enum's range, above cudaErrorUnknown (999)
 
-template <typename Kernel>
-inline cudaError_t grant_smem(Kernel kernel, size_t bytes) {
+// The current device's opt-in limit of a block's shared memory, in bytes.
+inline cudaError_t smem_limit(size_t* bytes) {
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *bytes = (size_t)limit;
+  return err;
+}
+
+template <typename Kernel>
+inline cudaError_t grant_smem(Kernel kernel, size_t bytes) {
+  size_t limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  if (bytes > (size_t)limit) return static_cast<cudaError_t>(kSmemExceeded);
+  if (bytes > limit) return static_cast<cudaError_t>(kSmemExceeded);
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

@@ -2,15 +2,15 @@
 (gnngls_tpu/search/pallas_gls.py::_gls_kernel), and its wrapper.
 
 `gls_whole` runs the fixed-budget GLS of search/local_search.py for every
-instance, one thread block each.  CPU tensors take the plain twin
+instance, one thread block of 1024 threads each.  CPU tensors take the plain twin
 `gls_fixed_plain`; CUDA tensors launch the kernel (csrc/gls_whole.cu), or the
 wrapper raises.  The kernel has two state layouts, one body:
 
 * "shared": D, the penalties and the current guide in one block's shared
   memory, for n <= `max_n()` (138 on sm_90);
 * "global": D and the guides read in place from global memory, the penalties
-  in a (B, n, n) workspace that the wrapper allocates zeroed for each launch,
-  for n <= `MAX_N` (1024).
+  and a transposed copy of D in a (B, 2, n, n) workspace that the wrapper
+  allocates zeroed for each launch, for n <= `MAX_N` (1024).
 
 "auto" takes the shared layout where it fits.  Both layouts give the same
 bits.  Past `MAX_N` the wrapper raises rather than compute some other way.
@@ -86,13 +86,13 @@ def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
         work=torch.empty((B, 2), dtype=i32, device=dev))
     if B == 0:
         return out
-    penalties = None
+    workspace = None
     if layout == "global":  # zeroed for each launch: the search starts from P = 0
-        penalties = torch.zeros((B, n, n), dtype=f32, device=dev)
+        workspace = torch.zeros((B, 2, n, n), dtype=f32, device=dev)
     err = kernels.library().gls_whole_launch(
         Ds.data_ptr(), guides.data_ptr(), init_tours.data_ptr(), B, n,
         guides.shape[1], n_iters, perturbation_moves, LAYOUTS[layout],
-        None if penalties is None else penalties.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
         *[t.data_ptr() for t in out], dev.index, kernels.stream_of(Ds))
     kernels.check(err, "gls_whole_launch")
     kernels.launches["gls_whole"] += 1

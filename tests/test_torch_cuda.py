@@ -24,6 +24,7 @@ from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partial
 from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials, gat_sorted_partials_plain
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
+from gnngls_tpu_torch.search.gls_whole import max_n as gls_whole_max_n
 from gnngls_tpu_torch.search.local_search import gls_fixed_plain
 
 pytestmark = pytest.mark.gpu
@@ -36,8 +37,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,H,F", [(5, 2, 8), (20, 4, 8), (50, 8, 16), (100, 8, 16), (30, 2, 32)])
+@pytest.mark.parametrize("n,H,F", [(5, 2, 8), (20, 4, 8), (50, 8, 16), (100, 8, 16), (30, 2, 32),
+                                   *[(n, H, F) for n in (3, 10, 100, 111) for H in (1, 8)
+                                     for F in (8, 16, 32)],
+                                   (300, 8, 32)])
 def test_gat_group_kernel_matches_plain(cuda, n, H, F):
+    """n=3 has one source a target; n=111 is the top of K2's route at H*F=128;
+    n=300 H=8 F=32 does not fit a block with all eight heads, so the block
+    takes a slice of them."""
     rng = np.random.default_rng(n)
     E = n * (n - 1) // 2
     el, er = (torch.as_tensor(3 * rng.standard_normal((2, E, H)), dtype=torch.float32,
@@ -55,8 +62,14 @@ def test_gat_group_kernel_matches_plain(cuda, n, H, F):
 
 
 @pytest.mark.parametrize("n,B,iters,pm,G", [(10, 3, 2, 4, 1), (20, 8, 5, 4, 2),
-                                            (64, 3, 4, 10, 1), (138, 1, 1, 5, 1)])
+                                            (64, 3, 4, 10, 1), (138, 1, 1, 5, 1),
+                                            (3, 4, 3, 4, 1), (4, 4, 3, 4, 2), (33, 3, 3, 8, 1),
+                                            (34, 2, 3, 8, 2), (138, 2, 2, 10, 2),
+                                            (139, 2, 2, 10, 1), (500, 2, 2, 20, 1)])
 def test_gls_kernel_matches_plain(cuda, n, B, iters, pm, G):
+    """Every layout that takes n against the twin: n=3 and 4 have at most one
+    2-opt candidate, n=33 and 34 put a row of 31 and 32 candidates beside a
+    warp, 138 is the top of the shared layout and 139 the first global n."""
     rng = np.random.default_rng(n + G)
     D = coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32))
     R = rng.random((B, n, n))
@@ -64,11 +77,12 @@ def test_gls_kernel_matches_plain(cuda, n, B, iters, pm, G):
     Dt = torch.as_tensor(D, device=cuda)
     Gt = torch.as_tensor(np.ascontiguousarray(guides, dtype=np.float32), device=cuda)
     T = nearest_neighbor_batch(Dt)
-    got = gls_whole(Dt, Gt, T, n_iters=iters, perturbation_moves=pm)
-    torch.cuda.synchronize()
     want = gls_fixed_plain(Dt, Gt, T, n_iters=iters, perturbation_moves=pm)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for layout in ("shared", "global") if n <= gls_whole_max_n() else ("global",):
+        got = gls_whole(Dt, Gt, T, n_iters=iters, perturbation_moves=pm, layout=layout)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), layout
 
 
 @pytest.mark.parametrize("n,H,F,gs", [(18, 4, 8, 8), (40, 4, 8, 8), (30, 2, 32, 16),

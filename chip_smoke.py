@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (gnngls_tpu_torch) on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--k4_against SRC]
 
 Phases, each printed with the elapsed seconds; any failure exits non-zero
 and prints no result line:
@@ -43,11 +43,14 @@ and prints no result line:
      K1's global layout timed at the tsp500 path's shapes and held against
      their twins there (K3's route also against K3's arithmetic), with
      bounds.
- 10. the per-head matmul partials (K4) against their plain twin on seeded
-     inputs at n = 10, 50, 100 (B=2); K4 merged against K2 merged on the
-     checkpoint's layer 0 at B=64 n=100, both timed there; the pallas_mxu
-     route at n=120, which warns and runs K3; and K4 at n=300, whose score
-     tile does not fit a block, which raises ValueError.
+ 10. the per-head matmul partials (K4, on the tensor cores in 3xTF32)
+     against their plain twin on seeded inputs at n = 3, 10, 50, 100, 111
+     (B=2); K4 merged against K2 merged on the checkpoint's layer 0 at B=64
+     n=100, both timed there, with K4's tensor-core operations (and, with
+     --k4_against SRC, K4 built from SRC, held and timed in turns with
+     them); the pallas_mxu route at n=120, which warns and runs K3; and K4 at n=2074
+     (H=1, F=16), the first n whose block does not fit, which raises
+     ValueError.
  11. the tsp100 pallas_mxu path, with the launch counts reset just before and
      read just after: predict_regret(gat_impl="pallas_mxu") over the 500
      test instances at batch 64 (64 K4 launches, no K2), the predictions
@@ -91,6 +94,7 @@ N_ITERS500, BATCH500 = 40, 16
 PRED_TOL = 5e-4  # predictions against the JAX fixture (benchmarks/PARITY.md's scale)
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores, at 700 W
 K2_REL_TOL = 1e-5  # max |kernel - plain| <= K2_REL_TOL * max |plain|
 K3_REL_TOL = 1e-5  # the same for K3's route, the sorted-prefix kernel (m equal)
 K4_REL_TOL = 1e-5  # the same for the per-head matmul partials, and K4 merged vs K2 merged
@@ -177,6 +181,15 @@ def gat_partials_work(B, n, H, F, h_bytes=4):
     nbytes = (4 * (2 * B * E * H + n * K + 2 * B * n * K * H + B * n * K * H * F)
               + h_bytes * B * E * H * F)
     return ops, nbytes
+
+
+def mxu_tensor_core_flop(B, n, H, F):
+    """K4's products as csrc/gat_group_mxu.cu issues them: per (batch, city,
+    head), ceil(g/8) tiles of 8 targets x ceil(g/8) steps of 8 sources x
+    ceil(F/16) tiles of 16 features x 3 mma.sync m16n8k8 (3xTF32), 2*16*8*8
+    FLOP each."""
+    g = n - 1
+    return B * n * H * (-(-g // 8)) ** 2 * -(-F // 16) * 3 * 2 * 16 * 8 * 8
 
 
 def gls_work(work, n, G, n_iters):
@@ -722,25 +735,6 @@ def phase9_timings500(model, data, out, counts7, k3_err, dev):
     return rows
 
 
-def search_on(preds, coords, n_iters, pm, dev):
-    """The search as benchmarks/tsp500_e2e.py runs it on given predictions:
-    nearest neighbour on the regret matrix, then the whole-GLS kernel with
-    that matrix as the only guide.  Returns the result and the search's
-    seconds."""
-    import torch
-
-    from gnngls_tpu_torch.core.graph import edge_vector_to_matrix
-    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
-    from gnngls_tpu_torch.search import batched
-
-    n = coords.shape[1]
-    R = edge_vector_to_matrix(preds.astype("float32"), n)
-    inits = batched.nearest_neighbor_batch(torch.as_tensor(R, device=dev)).cpu().numpy()
-    res = batched.run_fixed_kernel(coords_to_distance_matrix(coords), R[:, None], inits,
-                                   n_iters=n_iters, perturbation_moves=pm, device=dev)
-    return res, res.chunk_times[1] - res.chunk_times[0]  # the kernel's window, synchronised
-
-
 def require_too_large(partials, n, F, dev, *extra):
     """A launcher refuses a block that does not fit the device's shared
     memory, and the wrapper raises ValueError for it; nothing is launched."""
@@ -763,9 +757,37 @@ def require_too_large(partials, n, F, dev, *extra):
     raise SmokeFailure(f"{partials.__name__} at n={n} F={F} did not raise")
 
 
-def phase10_mxu(model, ds, dev):
+def k4_built_from(src):
+    """K4's launcher compiled from another source of csrc/gat_group_mxu.cu
+    (an older version, say), in a library of its own, behind a wrapper with
+    gat_group_partials_mxu's signature that counts no launch."""
+    import ctypes
+
+    import torch
+
+    from gnngls_tpu_torch import kernels
+
+    launch = ctypes.CDLL(str(kernels.build([src]))).gat_group_mxu_launch
+    launch.argtypes = kernels.library().gat_group_mxu_launch.argtypes
+    launch.restype = ctypes.c_int
+
+    def partials(el, er, h, city):
+        B, E, H, F = h.shape
+        n, g = city.shape
+        m, z = (torch.empty((B, n, g, H), device=h.device) for _ in range(2))
+        num = torch.empty((B, n, g, H, F), device=h.device)
+        kernels.check(launch(el.data_ptr(), er.data_ptr(), h.data_ptr(), city.data_ptr(), B, n,
+                             E, H, F, m.data_ptr(), z.data_ptr(), num.data_ptr(),
+                             h.device.index, kernels.stream_of(el)), f"K4 from {src}")
+        return m, z, num
+
+    return partials
+
+
+def phase10_mxu(model, ds, dev, k4_against=None):
     """K4 against its twin, K4 merged against K2 merged, the n=120 route; K4
-    and K2 timed at the main path's shape."""
+    and K2 timed at the main path's shape, and K4 built from `k4_against`
+    when it is given."""
     import warnings
 
     import numpy as np
@@ -782,7 +804,8 @@ def phase10_mxu(model, ds, dev):
     worst = 0.0
     rng = np.random.default_rng(10)
     with torch.no_grad():
-        for n, H, F in ((10, 8, 16), (10, 4, 8), (50, 8, 16), (100, 8, 16)):
+        for n, H, F in ((3, 8, 16), (10, 8, 16), (10, 4, 8), (50, 8, 16), (100, 8, 16),
+                        (111, 8, 16)):
             E = n * (n - 1) // 2
             rnd = lambda *shape: torch.as_tensor(  # noqa: E731
                 rng.standard_normal(shape), dtype=torch.float32, device=dev)
@@ -824,6 +847,16 @@ def phase10_mxu(model, ds, dev):
         log(f"  K4 at B={B} n={n} H={H} F={F}: {k4_ms:.4f} ms/launch, plain {k4_plain:.3f} ms; "
             f"K2 at the same shape {k2_ms:.4f} ms; K4 merged vs K2 merged max abs {ab:.3e} "
             f"rel {rel:.3e}")
+        if k4_against:
+            other = k4_built_from(k4_against)
+            o = other(*args)
+            rel = max(errs(a, b)[1] for a, b in zip(o[1:], gat_group_partials_mxu_plain(*args)[1:]))
+            require(torch.equal(o[0], got[0]) and rel <= K4_REL_TOL,
+                    f"K4 from {k4_against} disagrees with the plain twin (rel {rel:.3e})")
+            ms = [cuda_ms(lambda: fn(*args), reps=10, warmup=2)
+                  for fn in (other, gat_group_partials_mxu, gat_group_partials, other)]
+            log(f"  K4 from {k4_against}: m equal, z/num rel {rel:.3e}; in turns it, this K4, "
+                f"K2, it: {', '.join(f'{t:.4f}' for t in ms)} ms/launch")
 
         n = 120
         topo = build_topology(n)
@@ -841,9 +874,13 @@ def phase10_mxu(model, ds, dev):
         require(torch.equal(routed, gat_conv_group(params, topo, h0, model.cfg.n_heads)),
                 f"pallas_mxu at n={n} differs from the K3 route")
         log(f"  pallas_mxu at n={n}: warned and ran K3 ({counts}), equal to the K3 route")
-        require_too_large(gat_group_partials_mxu, 300, 16, dev)
+        require_too_large(gat_group_partials_mxu, 2074, 16, dev)
     log(f"phase 10: K4 matches its plain twin and K2 (rel tol {K4_REL_TOL})")
     k4_ops, k4_bytes = gat_partials_work(B, ds.n_nodes, H, F)
+    k4_tc = mxu_tensor_core_flop(B, ds.n_nodes, H, F)
+    log(f"  K4's tensor-core work at B={B} n={ds.n_nodes}: {k4_tc:.4g} FLOP of TF32, "
+        f"{k4_tc / PEAK_TF32 * 1e3:.4f} ms at {PEAK_TF32:.3g} FLOP/s; K4 at "
+        f"{k4_tc / (k4_ms * 1e-3):.4g} FLOP/s")
     return worst, k4_ms, k4_plain, k2_ms, k4_ops, k4_bytes, f"B={B} n={ds.n_nodes} H={H} F={F}"
 
 
@@ -851,7 +888,7 @@ def phase11_mxu_path(model, ds, dev, k2_preds):
     import numpy as np
 
     from gnngls_tpu_torch import kernels
-    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.evaluate import predict_regret, search_on_predictions
     from gnngls_tpu_torch.utils import is_valid_tour
 
     kernels.reset_launch_counts()
@@ -867,7 +904,8 @@ def phase11_mxu_path(model, ds, dev, k2_preds):
         f"({len(ds) * preds.shape[1] / infer_s:.4g} edges/s); launches {counts}; max abs "
         f"difference from phase 3's K2 predictions {diff:.3e}")
     require(diff <= PRED_TOL, f"pallas_mxu predictions differ from K2's by {diff:.3e}")
-    res, search_s = search_on(preds, ds.coords, N_ITERS, PM, dev)
+    res, search_s = search_on_predictions(preds, ds.coords, n_iters=N_ITERS,
+                                           perturbation_moves=PM, device=dev)
     n = ds.n_nodes
     for b in range(len(ds)):
         require(is_valid_tour(n, res.best_tours[b]), f"pallas_mxu path instance {b}: invalid tour")
@@ -970,7 +1008,7 @@ def phase13_sep_path(model, data, out500, dev):
     from gnngls_tpu_torch import kernels
     from gnngls_tpu_torch.core.scaler import load_scalers
     from gnngls_tpu_torch.data.dataset import TSPDataset
-    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.evaluate import predict_regret, search_on_predictions
     from gnngls_tpu_torch.utils import is_valid_tour
 
     d = dict(data)
@@ -998,7 +1036,8 @@ def phase13_sep_path(model, data, out500, dev):
     require(rho >= SPEARMAN_MIN, f"Spearman {rho:.6f} against K3's predictions < {SPEARMAN_MIN}")
     require(diff <= SEP_FAST_PRED_TOL,
             f"pallas_sep_fast predictions differ from K3's by {diff:.3e} > {SEP_FAST_PRED_TOL}")
-    res, search_s = search_on(preds, ds.coords, N_ITERS500, 20, dev)
+    res, search_s = search_on_predictions(preds, ds.coords, n_iters=N_ITERS500,
+                                           perturbation_moves=20, device=dev)
     for i in range(len(ds)):
         require(is_valid_tour(N500, res.best_tours[i]), f"sep path instance {i}: invalid tour")
     gaps = (res.best_costs / data["opt_cost"] - 1.0) * 100.0
@@ -1024,7 +1063,15 @@ def phase13_sep_path(model, data, out500, dev):
     return counts, counts200
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k4_against", metavar="SRC",
+                    help="another source of csrc/gat_group_mxu.cu (e.g. an older commit's, "
+                    "from git show): phase 10 builds it alone, holds it against the plain "
+                    "twin and times it in turns with this K4 and K2")
+    k4_against = ap.parse_args(argv).k4_against
     try:
         import torch
     except ImportError:
@@ -1064,13 +1111,15 @@ def main() -> int:
         phase8_fixture200(model, dev)
         rows += phase9_timings500(model, data, out500, counts500, k3_err, dev)
         log("phase 9: the tsp500 path's kernels timed")
-        k4_err, k4_ms, k4_plain, k2_same, k4_ops, k4_bytes, k4_shape = phase10_mxu(model, ds, dev)
+        k4_err, k4_ms, k4_plain, k2_same, k4_ops, k4_bytes, k4_shape = phase10_mxu(
+            model, ds, dev, k4_against)
         counts11 = phase11_mxu_path(model, ds, dev, k2_preds)
         k5_err, k5_timed, k5_shape, k5_fx = phase12_sep(model, data, dev)
         counts13, counts200 = phase13_sep_path(model, data, out500, dev)
         rows.append(row("gat_group_mxu", "gnngls_tpu_torch/csrc/gat_group_mxu.cu",
                         "gnngls_tpu/ops/pallas_gat.py:143", counts11.get("gat_group_mxu", 0),
-                        k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape, k2_same_shape_ms=k2_same))
+                        k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape,
+                        k2_same_shape_ms=k2_same))
         ms, plain, ops, nbytes, k5_plain = k5_timed[True]
         rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sorted.cu",
                         "gnngls_tpu/ops/pallas_gat_sep.py:48", counts13.get("gat_sep", 0),

@@ -130,6 +130,22 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     }
 
 
+def search_on_predictions(preds: np.ndarray, coords: np.ndarray, *, n_iters: int,
+                          perturbation_moves: int = 20, device=None):
+    """The search on given regret predictions, (N, E), as
+    benchmarks/tsp500_e2e.py runs it: nearest neighbour on the regret
+    matrix, then the whole-GLS kernel with that matrix as the only guide.
+    Returns the search's result and its seconds (the kernel's synchronised
+    window)."""
+    dev = resolve_device(device)
+    R = edge_vector_to_matrix(preds.astype(np.float32), coords.shape[1])
+    inits = batched.nearest_neighbor_batch(torch.as_tensor(R, device=dev)).cpu().numpy()
+    res = batched.run_fixed_kernel(coords_to_distance_matrix(coords), R[:, None], inits,
+                                   n_iters=n_iters, perturbation_moves=perturbation_moves,
+                                   device=dev)
+    return res, res.chunk_times[1] - res.chunk_times[0]
+
+
 def search_progress_records(dataset: TSPDataset, out: dict,
                             instance_names: Optional[List[str]] = None) -> list:
     """Reference-format search-progress rows {instance, time, cost, opt_cost}:

@@ -54,25 +54,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path() -> pathlib.Path:
+def _library_path(name: str, sources) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES + HEADERS:
-        h.update((CSRC / s).read_bytes())
-    return build_dir() / f"libgnngls_kernels_{h.hexdigest()[:16]}.so"
+    for s in [*sources, *(CSRC / s for s in HEADERS)]:
+        h.update(s.read_bytes())
+    return build_dir() / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
+def build(sources=None) -> pathlib.Path:
     """Compile the kernels unless this exact build exists; return the path.
 
-    Raises with nvcc's stderr when the build fails.  The ptxas report
-    (registers, shared memory, spills) is kept beside the library as .log.
+    `sources` (paths) default to the package's; another list, such as an
+    older version of one kernel's source, builds a library of its own with
+    `csrc/` on the include path.  Raises with nvcc's stderr when the build
+    fails.  The ptxas report (registers, shared memory, spills) is kept
+    beside the library as .log.
     """
-    out = _library_path()
+    if sources is None:
+        name, sources = "libgnngls_kernels", [CSRC / s for s in SOURCES]
+    else:
+        sources = [pathlib.Path(s) for s in sources]
+        name = f"lib{sources[0].stem}"
+    out = _library_path(name, sources)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"

@@ -11,8 +11,9 @@ K2 (gnngls_tpu/ops/pallas_gat.py::_group_kernel) computes them in one shot;
 K3 (`_group_kernel_chunked`) streams the sources in chunks of gs and merges
 the chunks' partials online, flash-style; K4 (`_group_kernel_mxu`) computes
 K2's partials with num as one (g x g) @ (g x F) product per head.  On the
-card K2 and K4 have kernels of their own, and K3's route runs the
-sorted-prefix kernel of ops/gat_sorted.py, which gives the same partials.
+card K2 and K4 have kernels of their own (K4's product on the tensor cores,
+in 3xTF32), and K3's route runs the sorted-prefix kernel of
+ops/gat_sorted.py, which gives the same partials.
 All without the TPU's lane replication: m and z are (B, n, g, H), num is
 (B, n, g, H, F).  The two groups of an edge are merged outside the kernels
 by max-rescaling, as the JAX package does (pallas_gat.py:263-275):
@@ -143,8 +144,9 @@ def gat_group_partials_mxu(el, er, h, city_edges):
     outputs as `gat_group_partials`.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel
-    (csrc/gat_group_mxu.cu), or raise (ValueError where the g x g score tile
-    does not fit a block's shared memory: n above about 230 at F=16).
+    (csrc/gat_group_mxu.cu), or raise (ValueError where a block of one head
+    does not fit the device's shared memory: on an H100, n above 2073 at
+    F=16, 4841 at F=8 and 1321 at F=32).
     """
     _check_inputs(el, er, h, city_edges)
     dev = _card("gat_group_partials_mxu", el, er, h, city_edges)

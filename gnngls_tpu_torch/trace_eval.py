@@ -1,6 +1,7 @@
 """Where the time of the port's evaluation paths goes on the card.
 
     python -m gnngls_tpu_torch.trace_eval [--out DIR] [--n_iters N] [--tsp500]
+                                          [--gat_impl NAME]
 
 Default: the tsp100 main path.  Runs `evaluate.evaluate` once to warm up,
 then once more under torch.profiler (CPU and CUDA activities) on the 500
@@ -12,6 +13,12 @@ port).  After a small warm-up at n=500, profiles `generate_instances(128,
 `evaluate` of the tsp100 checkpoint on those instances (guide regret_pred,
 n_iters 40, perturbation_moves 20, batch 16).
 
+--gat_impl NAME (e.g. pallas_mxu, pallas_sep_fast): in place of `evaluate`,
+`predict_regret(..., gat_impl=NAME)` at the same batch size, then the search
+as benchmarks/tsp500_e2e.py runs it on those predictions (nearest neighbour
+on the regret matrix, the whole-GLS kernel with it as the only guide, the
+same n_iters and perturbation_moves).
+
 Prints:
   * the wall time of each stage (oracle, inference, search) and the peak
     device memory from evaluate's timings;
@@ -19,7 +26,8 @@ Prints:
   * the device's busy share of the profiled window (the union of kernel
     intervals over the wall time of the window), and so its idle share.
 The Chrome trace goes to DIR/trace_eval.json (DIR/trace_tsp500.json with
---tsp500).  Needs a CUDA device.
+--tsp500; the route's name appended with --gat_impl, as in
+trace_eval_pallas_mxu.json).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ def main(argv=None):
                     help="search budget (default 100, or 40 with --tsp500)")
     ap.add_argument("--tsp500", action="store_true",
                     help="profile the tsp500 path: oracle, then evaluate at n=500")
+    ap.add_argument("--gat_impl", default=None,
+                    help="predict through this GATConv route, then search on the predictions")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -65,7 +75,7 @@ def main(argv=None):
     from .core.scaler import load_scalers
     from .data.dataset import TSPDataset
     from .data.generate import generate_instances
-    from .evaluate import evaluate, resolve_device
+    from .evaluate import evaluate, predict_regret, resolve_device, search_on_predictions
     from .models.convert import load_model
     from .models.regret_gat import RegretGNNConfig
 
@@ -83,17 +93,31 @@ def main(argv=None):
         data["regret"] = np.zeros_like(data["in_solution"], dtype=np.float32)
         return TSPDataset.from_arrays(data, scalers=scalers)
 
+    def run(ds, n_iters):
+        """evaluate, or with --gat_impl its steps through that route."""
+        if args.gat_impl is None:
+            return evaluate(ds, **{**kw, "n_iters": n_iters})
+        t0 = time.time()
+        preds = predict_regret(model, ds, batch_size=kw["batch_size"], device=dev,
+                               gat_impl=args.gat_impl)
+        t1 = time.time()
+        _, search_s = search_on_predictions(preds, ds.coords, n_iters=n_iters,
+                                            perturbation_moves=kw["perturbation_moves"],
+                                            device=dev)
+        return {"timings": {"inference_s": t1 - t0, "search_s": search_s,
+                            "total_s": time.time() - t0}}
+
     if args.tsp500:
         kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 40,
                   perturbation_moves=20, batch_size=16, device=dev)
-        evaluate(tsp500(2, 1), **{**kw, "n_iters": 1})  # warm-up at n=500
+        run(tsp500(2, 1), 1)  # warm-up at n=500
     else:
         root = ROOT / "data" / "tsp100"
         ds = TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
                                  scalers_file=root / "scalers.json")
         kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 100,
                   perturbation_moves=20, batch_size=64, device=dev)
-        evaluate(ds, **kw)  # warm-up: kernel build, cuBLAS handles, allocator
+        run(ds, kw["n_iters"])  # warm-up: kernel build, cuBLAS handles, allocator
     torch.cuda.synchronize()
     stages = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -102,12 +126,13 @@ def main(argv=None):
             ds = tsp500(128, 100)
             torch.cuda.synchronize()
             stages["oracle_and_dataset_s"] = time.time() - t0
-        out = evaluate(ds, **kw)
+        out = run(ds, kw["n_iters"])
         torch.cuda.synchronize()
         wall = time.time() - t0
     stages.update(out["timings"])
     args.out.mkdir(parents=True, exist_ok=True)
-    trace = args.out / ("trace_tsp500.json" if args.tsp500 else "trace_eval.json")
+    stem = "trace_tsp500" if args.tsp500 else "trace_eval"
+    trace = args.out / (f"{stem}_{args.gat_impl}.json" if args.gat_impl else f"{stem}.json")
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]

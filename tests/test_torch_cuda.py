@@ -114,17 +114,31 @@ def _group_inputs(n, H, F, B, seed, spread, dev):
     return el, er, h, city
 
 
-@pytest.mark.parametrize("n,H,F", [(5, 2, 8), (10, 4, 8), (50, 8, 16), (100, 8, 16),
-                                   (111, 8, 16), (30, 2, 32)])
-def test_gat_group_mxu_kernel_matches_plain(cuda, n, H, F):
-    args = _group_inputs(n, H, F, 2, n, 3.0, cuda)
+@pytest.mark.parametrize("n,H,F,spread,ties", [
+    (5, 2, 8, 3.0, False), (10, 4, 8, 3.0, False), (50, 8, 16, 3.0, False),
+    (100, 8, 16, 3.0, False), (30, 2, 32, 3.0, False),
+    *[(n, H, F, 3.0, False) for n in (3, 111) for H in (1, 8) for F in (8, 16, 32)],
+    (14, 4, 16, 1.0, True), (100, 8, 16, 1.0, True), (20, 8, 16, 40.0, False),
+    (100, 8, 16, 40.0, False)])
+def test_gat_group_mxu_kernel_matches_plain(cuda, n, H, F, spread, ties):
+    """n=3 (g=2) has one n8 tile of targets, 6 of them padding, and its
+    sources are padded to gp=8; n=111 is the top of the route at H*F=128;
+    F = 8, 16, 32 give 1, 1, 2 m16 tiles of features (F=8 half padding).
+    ties: el takes four values, so maxima repeat and, where the top value is
+    unique, it sits at some target's own index (the second value then gives
+    m).  A spread of 40 sends most p to 0."""
+    el, er, h, city = _group_inputs(n, H, F, 2, n, spread, cuda)
+    if ties:
+        el = torch.round(torch.rand(el.shape, generator=torch.Generator().manual_seed(n)) * 3
+                         ).to(cuda)
     before = kernels.launches["gat_group_mxu"]
-    got = gat_group_partials_mxu(*args)
+    got = gat_group_partials_mxu(el, er, h, city)
     torch.cuda.synchronize()
     assert kernels.launches["gat_group_mxu"] == before + 1
-    want = gat_group_partials_mxu_plain(*args)
+    want = gat_group_partials_mxu_plain(el, er, h, city)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)  # the same max
     for a, b in zip(got[1:], want[1:]):
+        assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
@@ -160,7 +174,7 @@ def test_gat_sep_kernel_tied_maxima(cuda):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("name,n,F,extra", [("gat_group_mxu", 300, 16, ()),
+@pytest.mark.parametrize("name,n,F,extra", [("gat_group_mxu", 2074, 16, ()),
                                             ("gat_sep", 3100, 8, (False,)),
                                             ("gat_group", 1800, 32, ()),
                                             ("gat_sorted", 2800, 8, (True,))])
@@ -168,7 +182,11 @@ def test_launchers_refuse_a_block_that_does_not_fit(cuda, name, n, F, extra):
     """Each launcher checks its block's shared memory against the device's
     opt-in limit; the wrapper raises ValueError and counts no launch.  K5's
     route runs the sorted-prefix kernel, which reaches n=2712 with f32
-    payloads and n=2441 with bf16 ones."""
+    payloads and n=2441 with bf16 ones.  K4's block at one head holds h
+    (gp rows of F+8 floats, gp = g rounded up to 8), el and er (gp each), m
+    and z (g each) and 3 words: at F=16 and n=2073 (g = gp = 2072) that is
+    58,019 words, 232,076 bytes, within an H100's 232,448; at n=2074
+    (g=2073, gp=2080) 58,229 words, 232,916 bytes."""
     partials = {"gat_group_mxu": gat_group_partials_mxu, "gat_sep": gat_sep_partials,
                 "gat_group": gat_group_partials, "gat_sorted": gat_sorted_partials}[name]
     E = n * (n - 1) // 2

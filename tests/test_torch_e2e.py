@@ -77,6 +77,24 @@ def test_jax_predictions_through_port_search():
     np.testing.assert_array_equal(res.best_costs, ref_costs.astype(np.float64))
 
 
+def test_search_on_predictions_matches_jax_search():
+    """The search that the prediction-route paths run on given predictions:
+    nearest neighbour on the regret matrix, then GLS with it as the only
+    guide, gives JAX's tours on JAX's predictions."""
+    ds = _subset(jds)
+    params, bn, cfg = _jax_model()
+    preds = jev.predict_regret(params, bn, cfg, ds)
+    R = edge_vector_to_matrix(preds.astype(np.float32), 20)
+    D = jev.coords_to_distance_matrix(ds.coords).astype(np.float32)
+    ref = jbatched.run_fixed(D, R[:, None], np.asarray(jbatched.nearest_neighbor_batch(R)),
+                             n_iters=N_ITERS, perturbation_moves=PM)
+    res, search_s = tev.search_on_predictions(preds, ds.coords, n_iters=N_ITERS,
+                                              perturbation_moves=PM, device="cpu")
+    np.testing.assert_array_equal(res.best_tours, ref.best_tours)
+    np.testing.assert_array_equal(res.chunk_moves[:, -1], ref.trace_n)
+    assert search_s >= 0
+
+
 def test_port_evaluate_matches_jax_evaluate():
     params, bn, cfg = _jax_model()
     want = jev.evaluate(_subset(jds), params=params, bn_state=bn, model_cfg=cfg,

@@ -79,6 +79,123 @@ def test_mxu_partials_match_jax_kernel(n, H, F, spread):
                                    atol=1e-5 * np.abs(theirs).max())
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: the low 13 mantissa bits rounded away, to nearest
+    with ties away from zero."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _emulate_k4(el, er, h, city, split=True):
+    """csrc/gat_group_mxu.cu's per-group arithmetic in numpy: el, er (B, E, H)
+    and h (B, E, H, F) f32, city (n, g) -> m, z (B, n, g, H), num (B, n, g, H, F).
+
+    m from el's two largest values (the top one, or the second where the top
+    sits at the target); p = exp(leaky(el_j + er_i) - m_i), 0 at the self pair
+    and the padded sources; z as a quad of lanes sums it (lane t the sources
+    k0+t and k0+t+4 of each 8-source step, then (t0+t1)+(t2+t3)); num as
+    mma.sync accumulates it step by step, each product exact and each step
+    rounded to f32 once, in 3xTF32 (small*big, big*small, big*big) or, with
+    split=False, one TF32 product."""
+    f32, f64 = np.float32, np.float64
+    g = city.shape[1]
+    gp = -(-g // 8) * 8
+    el_c, er_c = (a[:, city].transpose(0, 1, 3, 2) for a in (el, er))  # (B, n, H, g)
+    h_c = h[:, city].transpose(0, 1, 3, 2, 4)  # (B, n, H, g, F)
+    leaky = lambda s: np.maximum(s, f32(0.2) * s)  # noqa: E731
+    srt = np.sort(el_c, axis=-1)
+    t1, t2 = srt[..., -1:], srt[..., -2:-1]
+    ti = np.argmax(el_c, axis=-1)[..., None]
+    i = np.arange(g)
+    m = leaky(np.where(i == ti, t2, t1) + er_c)
+    p = np.exp(leaky(el_c[..., None, :] + er_c[..., :, None]) - m[..., None]).astype(f32)
+    p[..., i, i] = 0
+    p = np.pad(p, [(0, 0)] * 4 + [(0, gp - g)])
+    hp = np.pad(h_c, [(0, 0)] * 3 + [(0, gp - g), (0, 0)])
+    part = np.zeros(p.shape[:-1] + (4,), f32)
+    acc = np.zeros(p.shape[:-1] + (h.shape[-1],), f32)
+    for k0 in range(0, gp, 8):
+        for t in range(4):
+            part[..., t] += p[..., k0 + t]
+            part[..., t] += p[..., k0 + t + 4]
+        a, b = p[..., k0:k0 + 8], hp[..., k0:k0 + 8, :]
+        if split:
+            a_big, b_big = _tf32(a), _tf32(b)
+            terms = ((_tf32(a - a_big), b_big), (a_big, _tf32(b - b_big)), (a_big, b_big))
+        else:
+            terms = ((_tf32(a), _tf32(b)),)
+        for x, y in terms:
+            acc = (acc.astype(f64) + np.matmul(x.astype(f64), y.astype(f64))).astype(f32)
+    z = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+    return m.transpose(0, 1, 3, 2), z.transpose(0, 1, 3, 2), acc.transpose(0, 1, 3, 2, 4)
+
+
+def _jax_mxu_partials(n, H, F, spread):
+    """test_mxu_partials_match_jax_kernel's inputs and JAX's K4 on them."""
+    B = 2
+    rng = np.random.default_rng(n)
+    E = n * (n - 1) // 2
+    el, er = (spread * rng.standard_normal((B, E, H)).astype(np.float32) for _ in range(2))
+    h = rng.standard_normal((B, E, H, F)).astype(np.float32)
+    city = jtopology(n).city_edges
+    jc = jnp.asarray(city)
+    out = jpallas._group_partials_mxu(jnp.asarray(el)[:, jc], jnp.asarray(er)[:, jc],
+                                      jnp.asarray(h).reshape(B, E, H * F)[:, jc],
+                                      interpret=True)
+    m_j, z_j, num_j = (np.asarray(a) for a in out)
+    return (el, er, h, city), (m_j[..., ::F], z_j[..., ::F], num_j.reshape(B, n, n - 1, H, F))
+
+
+@pytest.mark.parametrize("n,H,F,spread", [(10, 4, 8, 3.0), (16, 2, 8, 10.0), (12, 8, 16, 1.0)])
+def test_kernel_arithmetic_matches_jax_kernel(n, H, F, spread):
+    """The CUDA kernel's arithmetic (3xTF32 products, z in quad order, m by
+    the top-2 identity) against JAX's K4: m bit-equal, z and num within 1e-5
+    of the largest JAX value, the bar the kernel is held to on the card."""
+    args, (m_j, z_j, num_j) = _jax_mxu_partials(n, H, F, spread)
+    m, z, num = _emulate_k4(*args)
+    np.testing.assert_array_equal(m, m_j)
+    for mine, theirs in ((z, z_j), (num, num_j)):
+        np.testing.assert_allclose(mine, theirs, rtol=0, atol=1e-5 * np.abs(theirs).max())
+
+
+@pytest.mark.parametrize("n,H,F,spread", [(10, 4, 8, 3.0), (16, 2, 8, 10.0), (12, 8, 16, 1.0)])
+def test_one_tf32_product_misses_the_bar(n, H, F, spread):
+    """Why the kernel splits its operands: with one TF32 product (10 mantissa
+    bits) num misses 1e-5 of the largest JAX value on the same inputs."""
+    args, (_, _, num_j) = _jax_mxu_partials(n, H, F, spread)
+    num = _emulate_k4(*args, split=False)[2]
+    assert np.abs(num - num_j).max() > 1e-5 * np.abs(num_j).max()
+
+
+def _edge_inputs(case):
+    """Inputs where the kernel's shortcuts could go wrong."""
+    n, H, F = {"n3": (3, 2, 8), "ties": (14, 4, 16), "spread40": (20, 8, 16)}[case]
+    rng = np.random.default_rng(len(case))
+    E = n * (n - 1) // 2
+    el, er = (rng.standard_normal((2, E, H)).astype(np.float32) for _ in range(2))
+    if case == "ties":  # four values only: maxima repeat, and some sit at the target
+        el = np.round(rng.random((2, E, H)) * 3).astype(np.float32)
+    if case == "spread40":  # most p underflow to 0
+        el, er = 40 * el, 40 * er
+    h = rng.standard_normal((2, E, H, F)).astype(np.float32)
+    return el, er, h, build_topology(n).city_edges
+
+
+@pytest.mark.parametrize("case", ["n3", "ties", "spread40"])
+def test_kernel_arithmetic_matches_the_twin(case):
+    """The emulation against the plain twin on the CPU: n=3 (one source a
+    target, one mostly padded tile), tied maxima (the top value repeated,
+    and unique at some targets), a spread of 40."""
+    el, er, h, city = _edge_inputs(case)
+    want = [a.numpy() for a in gat_group_partials_mxu_plain(
+        torch.as_tensor(el), torch.as_tensor(er), torch.as_tensor(h), torch.as_tensor(city))]
+    m, z, num = _emulate_k4(el, er, h, city)
+    np.testing.assert_array_equal(m, want[0])
+    for mine, theirs in ((z, want[1]), (num, want[2])):
+        assert np.isfinite(mine).all()
+        np.testing.assert_allclose(mine, theirs, rtol=0, atol=1e-5 * np.abs(theirs).max())
+
+
 def test_mxu_twin_equals_k2_twin():
     """K4's partials are K2's: the same maxima, z and num to f32 rounding."""
     n, H, F = 14, 4, 8

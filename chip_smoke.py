@@ -72,11 +72,31 @@ and prints no result line:
      7's K3 ones (max abs difference within 5e-3, Spearman at least
      0.9999), the search (n_iters 40,
      pm 20) and its gap against the oracle; then gat_impl="pallas_sep" on the
-     n=200 JAX fixture, predictions within 5e-4.  Then the `kernels` JSON
-     line and the result line.
+     n=200 JAX fixture, predictions within 5e-4.
+ 14. the rest of evaluation: (a) the per-move engine on the card against
+     the same engine on the CPU, seeded (n, B) = (20, 8) and (50, 4), 5
+     iterations, pm 8, both first_improvement values, one guide and a
+     two-guide cycle: trace counts, chunk moves, best tours and trace costs
+     identical; (b) run_fixed (the per-move engine) against
+     run_fixed_kernel (K1) on tsp100 test instances 0-63 with phase 3's
+     regret guide, n_iters 100, pm 20: accepted moves, best tours and the
+     search's own best costs identical, and the JAX fixture held as in
+     phase 3; (c) the default main path, with the launch counts reset just
+     before and read just after: evaluate over the 500 instances, guide
+     regret_pred, the default time_limit of 10 s, batch 64 (64 K2
+     launches, no K1): tours, chunk boundaries, the deadline, progress
+     rows, moves/s; (d) first-improvement: evaluate(guide weight,
+     n_iters 20, pm 20) on instances 0-15 against the committed JAX
+     fixture (moves equal, best costs within rtol 1e-6); (e) the 10 s
+     protocol: calibrate_protocol_iters on the 500 instances at
+     REFERENCE_10S_MOVES[100], weight guide, through K1; (f) the shipped
+     checkpoint exported to a reference .pt under build/ and loaded back:
+     predictions on instances 0-63 equal to the npz model's bit for bit.
+     Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -106,6 +126,9 @@ PARENT_GAP100, PARENT_FIXTURE_EQ, PARENT_GAP500 = (0.3743, 0.1621, 3.6090), 61, 
 # K5-bf16 predictions against K3's at n=500: rank agreement, max abs difference
 SPEARMAN_MIN, SEP_FAST_PRED_TOL = 0.9999, 5e-3
 FORBIDDEN = ("jax", "gnngls_tpu", "pandas", "networkx", "matplotlib")
+FIXTURE100 = "gnngls_tpu_torch/testdata/jax_tsp100_test64_it100.json"
+FI_FIXTURE = "gnngls_tpu_torch/testdata/jax_tsp100_test16_fi_it20.json"
+FI_RTOL = 1e-6  # best costs of the first-improvement search against the JAX fixture
 
 
 class SmokeFailure(Exception):
@@ -1063,6 +1086,193 @@ def phase13_sep_path(model, data, out500, dev):
     return counts, counts200
 
 
+def head(ds, k):
+    """The first k instances of a dataset."""
+    return dataclasses.replace(ds, coords=ds.coords[:k], features=ds.features[:k],
+                               regret=ds.regret[:k], in_solution=ds.in_solution[:k],
+                               opt_cost=ds.opt_cost[:k])
+
+
+def phase14a_per_move_devices(dev):
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.batched import run_fixed
+    from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
+
+    for n, B in ((20, 8), (50, 4)):
+        rng = np.random.default_rng(140 + n)
+        D = coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32))
+        noise = rng.random((B, n, n)).astype(np.float32)
+        regret = np.maximum(D + 0.3 * (noise + noise.transpose(0, 2, 1)) - 0.4, 0.0)
+        inits = nearest_neighbor_batch(torch.as_tensor(D)).numpy()
+        for gname, G in (("weight", D[:, None]),
+                         ("cycle of 2", np.stack([regret.astype(np.float32), D], axis=1))):
+            for fi in (False, True):
+                kw = dict(n_iters=5, perturbation_moves=8, first_improvement=fi)
+                got = run_fixed(D, G, inits, device=dev, **kw)
+                want = run_fixed(D, G, inits, device="cpu", **kw)
+                for key in ("trace_n", "chunk_moves", "best_tours", "trace_costs",
+                            "best_costs"):
+                    require(np.array_equal(getattr(got, key), getattr(want, key)),
+                            f"per-move engine n={n} {gname} first_improvement={fi}: {key} "
+                            "differs between the card and the CPU")
+                log(f"  per-move n={n} B={B} {gname} first_improvement={fi}: card == CPU "
+                    f"(moves {got.trace_n.tolist()})")
+    log("phase 14a: the per-move engine gives the same bits on the card and the CPU")
+
+
+def phase14b_against_k1(ds, dev, guide64, init64):
+    import numpy as np
+
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.batched import run_fixed, run_fixed_kernel
+
+    k = len(guide64)
+    D = coords_to_distance_matrix(ds.coords[:k]).astype(np.float32)
+    res = run_fixed(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM, device=dev)
+    ker = run_fixed_kernel(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM,
+                           device=dev)
+    require(np.array_equal(res.trace_n, ker.chunk_moves[:, -1]),
+            "per-move engine vs K1: accepted moves differ")
+    require(np.array_equal(res.best_tours, ker.best_tours),
+            "per-move engine vs K1: best tours differ")
+    require(np.array_equal(res.best_costs, ker.search_costs),
+            "per-move engine vs K1: the search's best costs differ")
+    search_s = res.chunk_times[-1] - res.chunk_times[0]
+    moves = int(res.trace_n.sum())
+    fx = json.loads((ROOT / FIXTURE100).read_text())
+    costs = D[np.arange(k)[:, None], res.best_tours[:, :-1], res.best_tours[:, 1:]].sum(-1)
+    eq = int((np.float32(costs) == np.float32(fx["best_cost"][:k])).sum())
+    gap = float((costs.astype(np.float64) / ds.opt_cost[:k] - 1.0).mean() * 100.0)
+    log(f"phase 14b: per-move engine == K1 on instances 0-{k - 1} (n_iters {N_ITERS}, pm "
+        f"{PM}): {moves} accepted moves in {search_s:.3f} s ({moves / search_s:.4g} moves/s, "
+        f"B={k}); vs JAX fixture: {eq}/{k} best costs equal, mean gap {gap:.4f}% vs "
+        f"{fx['mean_gap']:.4f}%")
+    require(k == len(fx["best_cost"]) and abs(gap - fx["mean_gap"]) <= 0.1,
+            "per-move engine: mean gap over 0-63 differs from the JAX fixture by more than 0.1 pp")
+    return moves / search_s
+
+
+def phase14c_wall_clock(model, ds, dev):
+    import warnings
+
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import evaluate, search_progress_records
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    kernels.reset_launch_counts()
+    t = time.time()
+    out = evaluate(ds, model=model, guides=["regret_pred"], batch_size=BATCH, device=dev)
+    wall = time.time() - t
+    counts = dict(kernels.launches)
+    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH)}
+    log(f"phase 14c: evaluate with the default time limit on {len(ds)} instances in "
+        f"{wall:.1f} s; launches {counts}")
+    require(counts == want, f"wall-clock main path launches {counts}, expected {want}")
+    require(out["engine"] == "xla" and out["trace_mode"] == "per-move",
+            f"wall-clock evaluate ran engine {out['engine']!r}")
+    res = out["result"]
+    for b in range(len(ds)):
+        require(is_valid_tour(ds.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
+    times = res.chunk_times
+    require(len(times) >= 2 and all(b > a for a, b in zip(times, times[1:])),
+            "chunk boundaries do not increase")
+    require(times[-2] < res.deadline <= times[-1],
+            "the last chunk boundary is not the first at or past the deadline")
+    require(bool((np.diff(res.chunk_moves, axis=1) >= 0).all()), "chunk moves fell")
+    cap = res.trace_costs.shape[1]
+    saturated = int((res.trace_n > cap).sum())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t = time.time()
+        rows = search_progress_records(ds, out)
+        rows_s = time.time() - t
+    require(len(rows) == int(np.minimum(res.trace_n, cap).sum()), "progress rows missing")
+    require(all(math.isfinite(r["time"]) and math.isfinite(r["cost"]) for r in rows[:: 997]),
+            "progress rows not finite")
+    chunks = len(times) - 1
+    search_s = times[-1] - times[0]
+    moved = int((res.chunk_moves[:, -1] - res.chunk_moves[:, 0]).sum())
+    gaps = out["gaps"]
+    log(f"  {chunks} chunks = {chunks} iterations in {search_s:.3f} s after the initial "
+        f"local search; {int(res.chunk_moves[:, -1].sum())} accepted moves in all, {moved} in "
+        f"the chunks ({moved / search_s:.4g} moves/s, B={len(ds)}); inference "
+        f"{out['timings']['inference_s']:.3f} s; deadline {res.deadline - times[0]:.3f} s "
+        f"after the first boundary, last boundary {times[-1] - res.deadline:.3f} s past it")
+    log(f"  gap mean {gaps.mean():.4f}%  median {np.median(gaps):.4f}%  max {gaps.max():.4f}%; "
+        f"{saturated}/{len(ds)} traces saturated (cap {cap}); {len(rows)} progress rows in "
+        f"{rows_s:.2f} s")
+    return counts
+
+
+def phase14d_first_improvement(ds, dev):
+    import numpy as np
+
+    from gnngls_tpu_torch.evaluate import evaluate
+
+    fx = json.loads((ROOT / FI_FIXTURE).read_text())
+    k = len(fx["instances"])
+    out = evaluate(head(ds, k), guides=["weight"], n_iters=20, perturbation_moves=20,
+                   first_improvement=True, device=dev)
+    require(out["engine"] == "xla", f"first-improvement ran engine {out['engine']!r}")
+    moves = out["result"].trace_n
+    require(np.array_equal(moves, fx["moves"]), "first-improvement moves differ from JAX's")
+    rel = float(np.abs(out["best_costs"] / np.asarray(fx["best_cost"]) - 1.0).max())
+    tours = sum(np.array_equal(a, b) for a, b in zip(out["best_tours"], fx["best_tours"]))
+    log(f"phase 14d: first-improvement on instances 0-{k - 1}: moves equal to the JAX fixture "
+        f"({int(moves.sum())}), best costs within rel {rel:.3e} (tol {FI_RTOL}), {tours}/{k} "
+        f"best tours equal; search {out['timings']['search_s']:.3f} s")
+    require(rel <= FI_RTOL, f"first-improvement best costs differ from JAX's by {rel:.3e}")
+
+
+def phase14e_protocol(ds, dev):
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import (REFERENCE_10S_MOVES, calibrate_protocol_iters,
+                                           evaluate)
+
+    target = REFERENCE_10S_MOVES[ds.n_nodes]
+    kernels.reset_launch_counts()
+    t = time.time()
+    budget = calibrate_protocol_iters(ds, target_moves=target, guides=["weight"], device=dev)
+    calib_s = time.time() - t
+    counts = dict(kernels.launches)
+    require(counts.get("gls_whole", 0) >= 2 and set(counts) == {"gls_whole"},
+            f"the calibration's probes did not run through K1 alone: {counts}")
+    out = evaluate(ds, guides=["weight"], n_iters=budget, device=dev)
+    reached = float(np.mean(out["moves"]))
+    log(f"phase 14e: 10 s protocol at n={ds.n_nodes}: n_iters={budget} reaches {reached:.1f} "
+        f"mean accepted moves (target {target:.0f}) in {calib_s:.1f} s of calibration, "
+        f"{counts['gls_whole']} K1 launches; weight-guided gap at that budget "
+        f"{out['mean_gap']:.4f}%")
+    require(reached >= target, "the calibrated budget misses the move target")
+
+
+def phase14f_pt_checkpoint(model, ds, dev):
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.models import torch_import
+
+    path = kernels.build_dir() / "tsp100_checkpoint_best_val.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state_dict": torch_import.state_dict_from_params(model)}, path)
+    back, _ = torch_import.load_checkpoint(path, model.cfg, device=dev)
+    sub = head(ds, BATCH)
+    a = predict_regret(back, sub, batch_size=BATCH, device=dev)
+    b = predict_regret(model, sub, batch_size=BATCH, device=dev)
+    require(np.array_equal(a, b), "the .pt model's predictions differ from the npz model's")
+    log(f"phase 14f: {path.name} ({path.stat().st_size} bytes) predicts instances "
+        f"0-{BATCH - 1} bit for bit as the npz checkpoint")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1104,6 +1314,7 @@ def main(argv=None) -> int:
         rows = phase4_timings(model, ds, dev, out, counts, k2_err, k1_err)
         log("phase 4: the tsp100 path's kernels timed")
         k2_preds = predictions(out, ds.n_nodes)
+        guide64, init64 = out["guide_stack"][:BATCH], out["init_tours"][:BATCH]
         del out
         k3_err = phase5_gat_chunked(model, dev)
         phase6_gls_global(dev)
@@ -1135,9 +1346,16 @@ def main(argv=None) -> int:
                         f"prediction of the n=200 fixture ({fx_shape}, timed there too)",
                         k5_arithmetic_plain_ms=k5_plain, launch_shape_ms=fx_ms,
                         launch_shape_plain_ms=fx_plain, launch_shape_bound_ms=fx_bound))
+        log("phase 13: done")
+        phase14a_per_move_devices(dev)
+        phase14b_against_k1(ds, dev, guide64, init64)
+        phase14c_wall_clock(model, ds, dev)
+        phase14d_first_improvement(ds, dev)
+        phase14e_protocol(ds, dev)
+        phase14f_pt_checkpoint(model, ds, dev)
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 13: done on {card}")
+        log(f"phase 14: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The same GNN-guided local search for the TSP as the JAX package beside it,
 written for one NVIDIA H100 (sm_90a).  The main path is the reference's
 evaluation pipeline (`cli/test.py` -> `evaluate.evaluate`): an 8-layer GAT
-over the K_n line graph predicts per-edge regret, and a fixed-budget Guided
-Local Search consumes it.  Its hot spots are CUDA kernels written by hand,
+over the K_n line graph predicts per-edge regret, and a Guided Local Search
+consumes it, for 10 s of wall clock (the reference's default) or a fixed
+number of iterations.  Its hot spots are CUDA kernels written by hand,
 each with a plain PyTorch twin in the same module that runs whenever the
 tensors lie on the CPU: the GAT group partials, one-shot
 (`csrc/gat_group.cu`) or, for large n, by sorted prefix sums
@@ -16,10 +17,15 @@ Subpackages:
   data     instance generation with the GLS oracle, npz datasets with split
            files
   ops      linear, batch norm, GAT (plain paths and the group kernels)
-  models   the edge-regret model (nn.Module) and weight conversion
-  search   move semantics, nearest neighbour, the whole-GLS kernel and twin
+  models   the edge-regret model (nn.Module), weight conversion, reference
+           .pt checkpoints
+  search   move semantics, nearest neighbour, the whole-GLS kernel and twin,
+           the per-move engine and the fixed-budget and wall-clock drivers
   train    the checkpoint reader
   cli      the reference-compatible test entry point
+
+Modules: evaluate (inference, search, gaps, progress rows, the 10 s
+protocol), stats (paired bootstrap and sign-flip tests), utils, kernels.
 
 The package imports torch and numpy only.  Kernels are built with nvcc at
 their first CUDA launch (`kernels.py`).

@@ -1,7 +1,9 @@
 """Min-max scaling with sklearn semantics (gnngls_tpu/core/scaler.py).
 
-Only what evaluation needs: the affine map, its inverse, and the JSON reader
-for `scalers.json`.  Pickled sklearn scalers wait for the reference-API slice.
+Only what evaluation needs: the affine map, its inverse, and the readers of
+`scalers.json` and of the reference's pickled sklearn scalers (`scalers.pkl`,
+scripts/preprocess_dataset.py), the latter unpickled without importing
+sklearn here (pickle imports it to rebuild the objects).
 """
 
 from __future__ import annotations
@@ -35,14 +37,28 @@ class MinMaxScaler:
         X = np.asarray(X)
         return (X - self.min_.astype(X.dtype)) / self.scale_.astype(X.dtype)
 
+    @classmethod
+    def from_sklearn(cls, sk) -> "MinMaxScaler":
+        """A fitted sklearn MinMaxScaler with the default feature_range."""
+        fr = getattr(sk, "feature_range", (0, 1))
+        if tuple(fr) != (0, 1):
+            raise ValueError(f"only feature_range=(0, 1) is supported, got {fr}")
+        return cls(sk.data_min_, sk.data_max_)
+
 
 def load_scalers(path) -> dict:
-    """Scalers from the JSON format `{key: {data_min, data_max}}`."""
+    """Scalers from `scalers.json` ({key: {data_min, data_max}}) or from a
+    reference `scalers.pkl`: a dict of sklearn scalers, possibly nested under
+    an 'edges' key (gnngls/datasets.py)."""
     path = str(path)
-    if not path.endswith(".json"):
-        raise NotImplementedError(
-            f"{path}: only scalers.json is read by the port so far; pickled "
-            "reference scalers wait for the reference-API slice")
-    with open(path) as f:
-        return {k: MinMaxScaler(v["data_min"], v["data_max"])
-                for k, v in json.load(f).items()}
+    if path.endswith(".json"):
+        with open(path) as f:
+            return {k: MinMaxScaler(v["data_min"], v["data_max"])
+                    for k, v in json.load(f).items()}
+    import pickle
+
+    with open(path, "rb") as f:
+        obj = pickle.load(f)
+    if "edges" in obj:
+        obj = obj["edges"]
+    return {k: MinMaxScaler.from_sklearn(v) for k, v in obj.items()}

@@ -1,18 +1,20 @@
 """Array-resident TSP splits (gnngls_tpu/data/dataset.py, eval side).
 
 A split is dense arrays over a leading instance axis; every instance shares
-the one static K_n topology.  Reading the reference's networkx pickles
-(`from_reference_dir`) waits for the reference-API slice.
+the one static K_n topology.  `from_reference_dir` reads the reference's own
+format: a txt listing of pickled networkx graphs with `scalers.pkl` beside
+it (unpickling them needs networkx; this module does not import it).
 """
 
 from __future__ import annotations
 
+import pathlib
 from dataclasses import dataclass, field
 from typing import Dict, List
 
 import numpy as np
 
-from ..core.graph import build_topology
+from ..core.graph import build_topology, edge_index
 from ..core.scaler import MinMaxScaler, load_scalers
 from .generate import coords_to_distance_matrix, load_dataset
 
@@ -87,7 +89,47 @@ class TSPDataset:
         return cls.from_arrays(load_dataset(npz_path), indices, scalers, feat_drop_idx)
 
     @classmethod
-    def from_reference_dir(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "reading reference networkx pickles waits for the reference-API "
-            "slice of the port; use an instances.npz with a split file")
+    def from_reference_dir(cls, instances_file, scalers_file=None,
+                           feat_drop_idx=()) -> "TSPDataset":
+        """A reference dataset: `instances_file` lists pickled networkx graphs
+        (paths relative to its folder, one a line) whose nodes carry "pos"
+        and whose edges carry "weight", "features", "regret" and
+        "in_solution"; the optimum is the weight of the in_solution edges.
+        Scalers come from `scalers_file`, else from a `scalers.pkl` beside
+        the listing when there is one."""
+        import pickle
+
+        instances_file = pathlib.Path(instances_file)
+        root = instances_file.parent
+        names = [ln.strip() for ln in open(instances_file) if ln.strip()]
+        graphs = []
+        for name in names:
+            with open(root / name, "rb") as f:
+                graphs.append(pickle.load(f))
+        n = graphs[0].number_of_nodes()
+        E = build_topology(n).n_edges
+        N = len(graphs)
+        coords = np.zeros((N, n, 2), dtype=np.float32)
+        features = []
+        regret = np.zeros((N, E), dtype=np.float32)
+        in_sol = np.zeros((N, E), dtype=bool)
+        opt_cost = np.zeros((N,), dtype=np.float64)
+        for i, G in enumerate(graphs):
+            for v in G.nodes:
+                coords[i, v] = G.nodes[v]["pos"]
+            width = len(np.atleast_1d(G.edges[next(iter(G.edges))]["features"]))
+            feats = np.zeros((E, width), dtype=np.float32)
+            for (u, v), d in G.edges.items():
+                e = edge_index(n, u, v)
+                feats[e] = d["features"]
+                regret[i, e] = d.get("regret", 0.0)
+                in_sol[i, e] = bool(d.get("in_solution", False))
+            features.append(feats)
+            opt_cost[i] = sum(d["weight"] for d in G.edges.values()
+                              if d.get("in_solution", False))
+        if scalers_file is None and (root / "scalers.pkl").exists():
+            scalers_file = root / "scalers.pkl"
+        scalers = load_scalers(scalers_file) if scalers_file is not None else {}
+        return cls(coords=coords, features=np.stack(features), regret=regret,
+                   in_solution=in_sol, opt_cost=opt_cost, scalers=scalers,
+                   feat_drop_idx=list(feat_drop_idx))

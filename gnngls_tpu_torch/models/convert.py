@@ -19,22 +19,22 @@ import torch
 _LAYER_KEY = re.compile(r"^(params|bn_state)::layers/(\d+)/(.+)$")
 
 
+def port_name(key: str) -> str:
+    """The `RegretGNN` state-dict name of a flat `params::`/`bn_state::` key."""
+    m = _LAYER_KEY.match(key)
+    if m:
+        _, i, rest = m.groups()
+        return f"layers.{i}.{rest.replace('/', '.')}"
+    if key.startswith("params::"):
+        return key[len("params::"):].replace("/", ".")
+    raise KeyError(f"unexpected checkpoint key {key!r}")
+
+
 def state_from_jax_numpy(blobs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat `params::`/`bn_state::` arrays -> a `RegretGNN` state dict."""
-    state = {}
-    for key, arr in blobs.items():
-        if key.startswith("opt_state::") or key == "__meta__":
-            continue
-        m = _LAYER_KEY.match(key)
-        if m:
-            kind, i, rest = m.groups()
-            name = f"layers.{i}.{rest.replace('/', '.')}"
-        elif key.startswith("params::"):
-            name = key[len("params::"):].replace("/", ".")
-        else:
-            raise KeyError(f"unexpected checkpoint key {key!r}")
-        state[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
-    return state
+    return {port_name(key): torch.from_numpy(np.array(arr, dtype=np.float32))
+            for key, arr in blobs.items()
+            if not (key.startswith("opt_state::") or key == "__meta__")}
 
 
 def load_model(path, cfg, device="cpu"):

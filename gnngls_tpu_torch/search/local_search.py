@@ -1,6 +1,6 @@
-"""Fixed-budget Guided Local Search in plain PyTorch: the twin of the
-whole-GLS kernel (gnngls_tpu/search/local_search.py semantics, with
-gnngls_tpu/search/pallas_gls.py's outputs).
+"""Guided Local Search in plain PyTorch, batched in lock step over instances:
+the whole-GLS kernel's twin (gnngls_tpu/search/pallas_gls.py's outputs) and
+the per-move engine (gnngls_tpu/search/local_search.py), on one pair of loops.
 
 Per instance:
   * k = 0.1 * init_cost / n from the cost before the initial local search.
@@ -17,14 +17,20 @@ Per instance:
   * Each outer iteration (guide it % G) perturbs, runs the local search, and
     keeps the tour if its cost is strictly below the best.
 
-The batch runs in lock step: an instance whose loop has ended is masked.
-Every f32 expression is the kernel's (see search/moves.py), so on the same
-inputs the two give the same tours, moves, traces and costs.
+With `first_improvement` every scan takes the first improving candidate in
+scan order instead of the best.  An instance whose loop has ended is masked.
+Every accepted move counts in the state's `Trace`; with a cost buffer the
+trace also records the cost after the move (cost + delta in the local
+search, the true-weight re-cost in the perturbation) at the saturating index
+min(count, cap - 1), as gnngls_tpu's `_record` does.  Every f32 expression is
+the kernel's (see search/moves.py) and tour costs are its halving-tree sums,
+so with best-improvement the per-move engine, the twin and the kernel give
+the same tours, moves and costs on the same inputs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,27 +46,76 @@ class GLSOutput(NamedTuple):
     work: torch.Tensor  # (B, 2) int32 local-search rounds, perturbation rounds
 
 
-def _local_search(D, t, cost, moves, work):
+class Trace(NamedTuple):
+    costs: Optional[torch.Tensor]  # (B, cap) f32 cost after each accepted move, or None
+    n: torch.Tensor  # (B,) int32 accepted moves (may exceed cap)
+
+
+def make_trace(B: int, cap: Optional[int], device) -> Trace:
+    """A trace of `cap` cost rows an instance; cap None counts moves only."""
+    if cap is not None and cap < 1:
+        raise ValueError(f"trace_cap must be >= 1, got {cap}")
+    costs = None if cap is None else torch.zeros((B, cap), dtype=torch.float32, device=device)
+    return Trace(costs, torch.zeros(B, dtype=torch.int32, device=device))
+
+
+def _record(trace: Trace, cost: torch.Tensor, on: torch.Tensor) -> None:
+    """Where `on`: write cost at row min(n, cap - 1), then count the move."""
+    if trace.costs is not None:
+        idx = trace.n.clamp(max=trace.costs.shape[1] - 1).long()[:, None]
+        keep = trace.costs.gather(1, idx)[:, 0]
+        trace.costs.scatter_(1, idx, torch.where(on, cost, keep)[:, None])
+    trace.n.add_(on.int())
+
+
+class GLSState(NamedTuple):
+    """The search state of a batch, chunkable across calls."""
+
+    tour: torch.Tensor  # (B, n+1) int64 current tours
+    cost: torch.Tensor  # (B,) f32 current true cost
+    best_tour: torch.Tensor  # (B, n+1) int64
+    best_cost: torch.Tensor  # (B,) f32
+    penalties: torch.Tensor  # (B, n, n) f32 symmetric edge penalties
+    k: torch.Tensor  # (B,) f32 penalty scale, 0.1 * init_cost / n
+    iter_i: int  # outer iterations run: the guide cycles on it
+    trace: Trace
+    work: torch.Tensor  # (B, 2) int32 local-search rounds, perturbation rounds
+
+
+def clone_state(state: GLSState) -> GLSState:
+    """A copy that the loops may update in place without touching `state`."""
+    tr = state.trace
+    trace = Trace(None if tr.costs is None else tr.costs.clone(), tr.n.clone())
+    return state._replace(tour=state.tour.clone(), cost=state.cost.clone(),
+                          best_tour=state.best_tour.clone(),
+                          best_cost=state.best_cost.clone(),
+                          penalties=state.penalties.clone(), k=state.k.clone(),
+                          trace=trace, work=state.work.clone())
+
+
+def _local_search(D, t, cost, trace, work, first_improvement=False):
     n = D.shape[1]
     active = torch.ones(t.shape[0], dtype=torch.bool, device=D.device)
     for _ in range(10 * n):
         if not bool(active.any()):
             break
         work[:, 0] += active.int()
-        d, i, j, found = mv.two_opt_a2a(mv.tour_matrix(D, t))
+        d, i, j, found = mv.two_opt_a2a(mv.tour_matrix(D, t), first_improvement)
         f1 = active & found
         t = torch.where(f1[:, None], mv.apply_two_opt(t, i, j), t)
         cost = torch.where(f1, cost + d, cost)
-        d, i, j, found = mv.relocate_a2a(mv.tour_matrix(D, t))
+        _record(trace, cost, f1)
+        d, i, j, found = mv.relocate_a2a(mv.tour_matrix(D, t), first_improvement)
         f2 = active & found
         t = torch.where(f2[:, None], mv.apply_relocate(t, i, j), t)
         cost = torch.where(f2, cost + d, cost)
-        moves += f1.int() + f2.int()
+        _record(trace, cost, f2)
         active = f1 | f2
     return t, cost
 
 
-def _perturbation(D, Gm, P, k, t, cost, work, pm):
+def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, first_improvement=False):
+    """Updates P, the trace and work in place; returns the tours and costs."""
     B, n, _ = D.shape
     b = torch.arange(B, device=D.device)
     made = torch.zeros(B, dtype=torch.int32, device=D.device)
@@ -80,46 +135,80 @@ def _perturbation(D, Gm, P, k, t, cost, work, pm):
             on = act & (node != 0)
             i = torch.where(t == node[:, None], torch.arange(n + 1, device=D.device),
                             n + 1).min(dim=1).values.clamp(max=n)
-            _, lo, hi, found = mv.two_opt_o2a(mv.tour_matrix(Dg, t), i)
+            _, lo, hi, found = mv.two_opt_o2a(mv.tour_matrix(Dg, t), i, first_improvement)
             acc = on & found
             t = torch.where(acc[:, None], mv.apply_two_opt(t, lo, hi), t)
             cost = torch.where(acc, mv.tour_costs(D, t), cost)
+            _record(trace, cost, acc)
             made += acc.int()
-            _, j, found = mv.relocate_o2a(mv.tour_matrix(Dg, t), i)
+            _, j, found = mv.relocate_o2a(mv.tour_matrix(Dg, t), i, first_improvement)
             acc = on & found
             t = torch.where(acc[:, None], mv.apply_relocate(t, i, j), t)
             cost = torch.where(acc, mv.tour_costs(D, t), cost)
+            _record(trace, cost, acc)
             made += acc.int()
-    return t, cost, made
+    return t, cost
+
+
+def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[int] = 1024,
+             first_improvement: bool = False) -> GLSState:
+    """The initial local search on true weights.  D (B, n, n) f32,
+    init_tours (B, n+1) int; runs on D's device."""
+    B, n, _ = D.shape
+    t = init_tours.to(device=D.device, dtype=torch.long)
+    cost = mv.tour_costs(D, t)
+    k = (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
+    trace = make_trace(B, trace_cap, D.device)
+    work = torch.zeros((B, 2), dtype=torch.int32, device=D.device)
+    t, cost = _local_search(D, t, cost, trace, work, first_improvement)
+    return GLSState(t, cost, t, cost, torch.zeros_like(D), k, 0, trace, work)
+
+
+def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
+                  perturbation_moves: int, first_improvement: bool = False) -> GLSState:
+    """One outer iteration: perturb under guide iter_i % G, re-optimise on
+    true weights, keep a strictly better tour.  Updates the state's
+    penalties, trace and work in place.  guides (B, G, n, n)."""
+    guide = guides[:, state.iter_i % guides.shape[1]]
+    t, cost = _perturbation(D, guide, state.penalties, state.k, state.tour, state.cost,
+                            state.trace, state.work, perturbation_moves, first_improvement)
+    t, cost = _local_search(D, t, cost, state.trace, state.work, first_improvement)
+    better = cost < state.best_cost
+    return state._replace(tour=t, cost=cost,
+                          best_tour=torch.where(better[:, None], t, state.best_tour),
+                          best_cost=torch.where(better, cost, state.best_cost),
+                          iter_i=state.iter_i + 1)
+
+
+def guided_local_search(D: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor, *,
+                        n_iters: int, perturbation_moves: int = 20,
+                        trace_cap: Optional[int] = 1024,
+                        first_improvement: bool = False) -> GLSState:
+    """Fixed-budget GLS with per-move traces.  guides (B, G, n, n) or (B, n, n)."""
+    if guides.dim() == 3:
+        guides = guides[:, None]
+    state = gls_init(D, init_tours, trace_cap=trace_cap, first_improvement=first_improvement)
+    for _ in range(n_iters):
+        state = gls_iteration(state, D, guides, perturbation_moves=perturbation_moves,
+                              first_improvement=first_improvement)
+    return state
 
 
 def gls_fixed_plain(Ds: torch.Tensor, guides: torch.Tensor,
                     init_tours: torch.Tensor, *, n_iters: int,
                     perturbation_moves: int = 20) -> GLSOutput:
-    """Ds (B, n, n) f32, guides (B, G, n, n) or (B, n, n) f32, init_tours
-    (B, n+1) int; runs on the tensors' device."""
+    """The kernel's twin: best-improvement, per-iteration traces.  Ds
+    (B, n, n) f32, guides (B, G, n, n) or (B, n, n) f32, init_tours (B, n+1)
+    int; runs on the tensors' device."""
     if guides.dim() == 3:
         guides = guides[:, None]
-    B, n, _ = Ds.shape
-    dev = Ds.device
-    t = init_tours.long()
-    cost = mv.tour_costs(Ds, t)
-    k = (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
-    P = torch.zeros_like(Ds)
-    moves = torch.zeros(B, dtype=torch.int32, device=dev)
-    work = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-    t, cost = _local_search(Ds, t, cost, moves, work)
-    best_t, best_c = t, cost
-    tr_c = torch.zeros((B, n_iters), dtype=torch.float32, device=dev)
-    tr_m = torch.zeros((B, n_iters), dtype=torch.int32, device=dev)
+    B = Ds.shape[0]
+    state = gls_init(Ds, init_tours, trace_cap=None)
+    tr_c = torch.zeros((B, n_iters), dtype=torch.float32, device=Ds.device)
+    tr_m = torch.zeros((B, n_iters), dtype=torch.int32, device=Ds.device)
     for it in range(n_iters):
-        t, cost, made = _perturbation(Ds, guides[:, it % guides.shape[1]], P, k,
-                                      t, cost, work, perturbation_moves)
-        moves += made
-        t, cost = _local_search(Ds, t, cost, moves, work)
-        better = cost < best_c
-        best_t = torch.where(better[:, None], t, best_t)
-        best_c = torch.where(better, cost, best_c)
-        tr_c[:, it] = best_c
-        tr_m[:, it] = moves
-    return GLSOutput(best_t.to(torch.int32), best_c, moves, tr_c, tr_m, work)
+        state = gls_iteration(state, Ds, guides, perturbation_moves=perturbation_moves)
+        tr_c[:, it] = state.best_cost
+        tr_m[:, it] = state.trace.n
+    return GLSOutput(state.best_tour.to(torch.int32), state.best_cost, state.trace.n,
+                     tr_c, tr_m, state.work)

@@ -16,6 +16,11 @@ A move is accepted only if delta < -EPS_CLOSE (the reference's
 `not np.isclose(0, delta)`, compared in f32); ties go to the first candidate
 in row-major (i, j) order.  Candidates: 2-opt i >= 1, j <= n-1, j-i >= 2;
 relocate all-to-all skips i-j == 1, one-to-all skips only i == j.
+
+Each scan takes `first_improvement`: off, it returns the most improving
+candidate (the kernel's rule); on, the first improving one in row-major
+(i, j) scan order (gnngls_tpu/search/moves.py `_pick`, the reference's
+first-improvement mode).  The delta expressions are the same either way.
 """
 
 from __future__ import annotations
@@ -63,6 +68,20 @@ def first_min(score: torch.Tensor):
     return mn, idx, torch.isfinite(mn)
 
 
+def _pick(score: torch.Tensor, first_improvement: bool):
+    """(value, index, found) of the chosen candidate of each row of score
+    (B, m): the most negative, first on ties, or with `first_improvement`
+    the first finite one (index 0 and not found when there is none, as
+    gnngls_tpu's argmax(isfinite(flat)))."""
+    if not first_improvement:
+        return first_min(score)
+    ar = torch.arange(score.shape[1], device=score.device)
+    idx = torch.where(torch.isfinite(score), ar, _BIGI).min(dim=1).values
+    found = idx < _BIGI
+    idx = torch.where(found, idx, 0)
+    return score.gather(1, idx[:, None])[:, 0], idx, found
+
+
 def first_max(score: torch.Tensor):
     mx = score.max(dim=1).values
     ar = torch.arange(score.shape[1], device=score.device)
@@ -85,8 +104,8 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x[..., :-1], (1, 0))
 
 
-def two_opt_a2a(M: torch.Tensor):
-    """Best improving 2-opt over all (i, j): (delta, i, j, found)."""
+def two_opt_a2a(M: torch.Tensor, first_improvement: bool = False):
+    """Best (or first) improving 2-opt over all (i, j): (delta, i, j, found)."""
     nt = M.shape[1]
     n = nt - 1
     shifted = F.pad(M[:, :-1, :-1], (1, 0, 1, 0))  # [i, j] -> M[i-1, j-1]
@@ -94,12 +113,14 @@ def two_opt_a2a(M: torch.Tensor):
     delta = ((M + shifted) - c[:, :, None]) - c[:, None, :]
     ii, jj = _grid(nt, M.device)
     valid = (ii >= 1) & (jj <= n - 1) & (jj - ii >= 2) & (delta < NEG_EPS_F32)
-    d, k, found = first_min(torch.where(valid, delta, torch.inf).reshape(M.shape[0], -1))
+    d, k, found = _pick(torch.where(valid, delta, torch.inf).reshape(M.shape[0], -1),
+                        first_improvement)
     return d, k // nt, k % nt, found
 
 
-def relocate_a2a(M: torch.Tensor):
-    """Best improving relocate over all ordered (i, j), skipping i-j == 1."""
+def relocate_a2a(M: torch.Tensor, first_improvement: bool = False):
+    """Best (or first) improving relocate over all ordered (i, j), skipping
+    i-j == 1."""
     nt = M.shape[1]
     n = nt - 1
     d1, d2 = _offdiag(M, 1), _offdiag(M, 2)  # d1[q] = M[q+1, q], d2[q] = M[q+2, q]
@@ -114,7 +135,8 @@ def relocate_a2a(M: torch.Tensor):
     delta = rem[:, :, None] + torch.where(ii < jj, ins_lt, ins_gt)
     valid = ((ii >= 1) & (ii <= n - 1) & (jj >= 1) & (jj <= n - 1)
              & (ii != jj) & (ii - jj != 1) & (delta < NEG_EPS_F32))
-    d, k, found = first_min(torch.where(valid, delta, torch.inf).reshape(M.shape[0], -1))
+    d, k, found = _pick(torch.where(valid, delta, torch.inf).reshape(M.shape[0], -1),
+                        first_improvement)
     return d, k // nt, k % nt, found
 
 
@@ -122,8 +144,9 @@ def _rows(M: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return M[torch.arange(M.shape[0], device=M.device), i]
 
 
-def two_opt_o2a(Mg: torch.Tensor, i: torch.Tensor):
-    """Best improving 2-opt with one end at position i: (delta, lo, hi, found)."""
+def two_opt_o2a(Mg: torch.Tensor, i: torch.Tensor, first_improvement: bool = False):
+    """Best (or first) improving 2-opt with one end at position i:
+    (delta, lo, hi, found)."""
     nt = Mg.shape[1]
     n = nt - 1
     row_i = _rows(Mg, i)
@@ -134,12 +157,13 @@ def two_opt_o2a(Mg: torch.Tensor, i: torch.Tensor):
     jj = torch.arange(nt, device=Mg.device)[None, :]
     valid = ((jj >= 1) & (jj <= n - 1) & ((i[:, None] - jj).abs() >= 2)
              & (delta < NEG_EPS_F32))
-    d, j, found = first_min(torch.where(valid, delta, torch.inf))
+    d, j, found = _pick(torch.where(valid, delta, torch.inf), first_improvement)
     return d, torch.minimum(i, j), torch.maximum(i, j), found
 
 
-def relocate_o2a(Mg: torch.Tensor, i: torch.Tensor):
-    """Best improving relocate of the city at position i: (delta, j, found)."""
+def relocate_o2a(Mg: torch.Tensor, i: torch.Tensor, first_improvement: bool = False):
+    """Best (or first) improving relocate of the city at position i:
+    (delta, j, found)."""
     nt = Mg.shape[1]
     n = nt - 1
     d1, d2 = _offdiag(Mg, 1), _offdiag(Mg, 2)
@@ -152,7 +176,7 @@ def relocate_o2a(Mg: torch.Tensor, i: torch.Tensor):
     jj = torch.arange(nt, device=Mg.device)[None, :]
     delta = rem_i + torch.where(jj > i[:, None], ins_gt, ins_lt)
     valid = (jj >= 1) & (jj <= n - 1) & (jj != i[:, None]) & (delta < NEG_EPS_F32)
-    d, j, found = first_min(torch.where(valid, delta, torch.inf))
+    d, j, found = _pick(torch.where(valid, delta, torch.inf), first_improvement)
     return d, j, found
 
 

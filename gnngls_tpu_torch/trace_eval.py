@@ -1,11 +1,16 @@
 """Where the time of the port's evaluation paths goes on the card.
 
     python -m gnngls_tpu_torch.trace_eval [--out DIR] [--n_iters N] [--tsp500]
-                                          [--gat_impl NAME]
+                                          [--gat_impl NAME] [--time_limit S]
 
 Default: the tsp100 main path.  Runs `evaluate.evaluate` once to warm up,
 then once more under torch.profiler (CPU and CUDA activities) on the 500
 data/tsp100 test instances with the shipped checkpoint (n_iters 100).
+
+--time_limit S: the same with the reference's default budget in place of
+n_iters: S seconds of wall clock on the per-move engine (keep S small: the
+engine launches thousands of small kernels an iteration, and the trace
+grows with them).
 
 --tsp500: the large-n path (benchmarks/tsp500_e2e.py's steps through the
 port).  After a small warm-up at n=500, profiles `generate_instances(128,
@@ -24,10 +29,13 @@ Prints:
     device memory from evaluate's timings;
   * CUDA time by kernel name, largest first, with its share of kernel time;
   * the device's busy share of the profiled window (the union of kernel
-    intervals over the wall time of the window), and so its idle share.
+    intervals over the wall time of the window), and so its idle share;
+  * the count of kernel launches, and with --time_limit the chunks (outer
+    iterations) the search ran.
 The Chrome trace goes to DIR/trace_eval.json (DIR/trace_tsp500.json with
 --tsp500; the route's name appended with --gat_impl, as in
-trace_eval_pallas_mxu.json).  Needs a CUDA device.
+trace_eval_pallas_mxu.json; trace_eval_wall.json with --time_limit).  Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ def main(argv=None):
                     help="profile the tsp500 path: oracle, then evaluate at n=500")
     ap.add_argument("--gat_impl", default=None,
                     help="predict through this GATConv route, then search on the predictions")
+    ap.add_argument("--time_limit", type=float, default=None,
+                    help="tsp100: search S seconds of wall clock on the per-move engine")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -117,6 +127,8 @@ def main(argv=None):
                                  scalers_file=root / "scalers.json")
         kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 100,
                   perturbation_moves=20, batch_size=64, device=dev)
+        if args.time_limit is not None:
+            kw.update(n_iters=None, time_limit=args.time_limit)
         run(ds, kw["n_iters"])  # warm-up: kernel build, cuBLAS handles, allocator
     torch.cuda.synchronize()
     stages = {}
@@ -132,7 +144,9 @@ def main(argv=None):
     stages.update(out["timings"])
     args.out.mkdir(parents=True, exist_ok=True)
     stem = "trace_tsp500" if args.tsp500 else "trace_eval"
-    trace = args.out / (f"{stem}_{args.gat_impl}.json" if args.gat_impl else f"{stem}.json")
+    suffix = (f"_{args.gat_impl}" if args.gat_impl
+              else "_wall" if args.time_limit is not None else "")
+    trace = args.out / f"{stem}{suffix}.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
@@ -146,7 +160,10 @@ def main(argv=None):
     print(f"card: {card}")
     print(f"profiled wall {wall:.3f} s; stages {json.dumps(stages)}")
     print(f"profiled window {(t_hi - t_lo) / 1e6:.3f} s; kernel time {total_kernel / 1e6:.3f} s; "
-          f"device busy share {busy_share(kern, t_lo, t_hi):.4f}")
+          f"device busy share {busy_share(kern, t_lo, t_hi):.4f}; {len(kern)} kernel launches")
+    if "result" in out:
+        print(f"search: engine {out['engine']}, {len(out['result'].chunk_times) - 1} chunks, "
+              f"{int(out['moves'].sum())} accepted moves")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3:10.3f} ms  {us / max(total_kernel, 1e-9):7.2%}  {name[:110]}")
     print(f"trace -> {trace}")

@@ -6,6 +6,7 @@ exact (these are index arrays and the same float64/float32 arithmetic).
 """
 
 import pathlib
+import pickle
 
 import jax
 import numpy as np
@@ -52,7 +53,7 @@ def test_topology_matches(n):
 
 
 @pytest.mark.parametrize("name", ["tsp20", "tsp100"])
-def test_scalers_match(name):
+def test_scalers_match(name, tmp_path):
     path = ROOT / "data" / name / "scalers.json"
     js, ts = jscaler.load_scalers(path), tscaler.load_scalers(path)
     assert js.keys() == ts.keys()
@@ -63,8 +64,17 @@ def test_scalers_match(name):
                                       ts[key].inverse_transform(x))
     zero = tscaler.MinMaxScaler([1.0], [1.0])  # sklearn's zero-range guard
     np.testing.assert_array_equal(zero.scale_, [1.0])
-    with pytest.raises(NotImplementedError):
-        tscaler.load_scalers(ROOT / "data" / name / "scalers.pkl")
+    # the reference's pickled sklearn scalers read as JAX reads them
+    from sklearn.preprocessing import MinMaxScaler as SkMinMaxScaler
+
+    sk = {key: SkMinMaxScaler().fit(np.stack([js[key].data_min_, js[key].data_max_]))
+          for key in js}
+    pkl = tmp_path / "scalers.pkl"
+    pkl.write_bytes(pickle.dumps(sk))
+    jp, tp = jscaler.load_scalers(pkl), tscaler.load_scalers(pkl)
+    for key in js:
+        np.testing.assert_array_equal(jp[key].transform(x), tp[key].transform(x))
+        np.testing.assert_array_equal(tp[key].transform(x), ts[key].transform(x))
 
 
 @pytest.mark.parametrize("n", [5, 10, 100])

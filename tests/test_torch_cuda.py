@@ -22,6 +22,7 @@ from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partia
 from gnngls_tpu_torch.ops.gat_group import merge_group_partials
 from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
 from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials, gat_sorted_partials_plain
+from gnngls_tpu_torch.search.batched import run_fixed
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
 from gnngls_tpu_torch.search.gls_whole import max_n as gls_whole_max_n
@@ -337,3 +338,33 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
     D = torch.zeros((1, 1025, 1025), device=cuda)
     with pytest.raises(ValueError):  # beyond the global layout
         gls_whole(D, D, torch.zeros((1, 1026), dtype=torch.int32, device=cuda), n_iters=1)
+
+
+@pytest.mark.parametrize("n,B,iters,pm,G,first_improvement", [
+    (20, 8, 5, 8, 1, False), (20, 8, 5, 8, 2, True), (50, 4, 5, 8, 2, False),
+    (50, 4, 5, 8, 1, True)])
+def test_per_move_engine_on_the_card_matches_the_cpu(cuda, n, B, iters, pm, G,
+                                                     first_improvement):
+    """The per-move engine is tensor code: on CUDA tensors it gives the CPU's bits."""
+    Dt, Gt, T = _gls_case(n, B, G, 3 * n + G, cuda)
+    kw = dict(n_iters=iters, perturbation_moves=pm, first_improvement=first_improvement)
+    got = run_fixed(Dt, Gt, T, device=cuda, **kw)
+    want = run_fixed(Dt.cpu(), Gt.cpu(), T.cpu(), device="cpu", **kw)
+    for key in ("trace_n", "chunk_moves", "best_tours", "trace_costs", "best_costs", "work"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+
+
+@pytest.mark.parametrize("n,B,iters,pm,G", [(50, 8, 10, 10, 2), (100, 8, 10, 20, 1),
+                                            (200, 2, 3, 20, 1)])
+def test_per_move_engine_matches_the_kernel(cuda, n, B, iters, pm, G):
+    """With best-improvement the per-move engine runs K1's search: the same
+    accepted moves, best tours and the search's own best costs."""
+    Dt, Gt, T = _gls_case(n, B, G, 5 * n + G, cuda)
+    before = kernels.launches["gls_whole"]
+    res = run_fixed(Dt, Gt, T, n_iters=iters, perturbation_moves=pm, device=cuda)
+    assert kernels.launches["gls_whole"] == before
+    out = gls_whole(Dt, Gt, T.int(), n_iters=iters, perturbation_moves=pm)
+    np.testing.assert_array_equal(res.trace_n, out.moves.cpu().numpy())
+    np.testing.assert_array_equal(res.best_tours, out.best_tours.cpu().numpy())
+    np.testing.assert_array_equal(res.best_costs, out.best_costs.cpu().numpy())
+    np.testing.assert_array_equal(res.work, out.work.cpu().numpy())

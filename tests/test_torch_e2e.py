@@ -102,7 +102,7 @@ def test_port_evaluate_matches_jax_evaluate():
     model = load_model(ROOT / "models/tsp20/checkpoint_best_val.npz", RegretGNNConfig())
     got = tev.evaluate(_subset(tds), model=model, guides=["regret_pred"], n_iters=N_ITERS,
                        perturbation_moves=PM, device="cpu")
-    assert got["engine"] == "plain" and got["gaps"].shape == (K,)
+    assert got["engine"] == "pallas" and got["device"] == "cpu" and got["gaps"].shape == (K,)
     assert abs(got["mean_gap"] - want["mean_gap"]) <= GAP_TOL_PP
     np.testing.assert_allclose(got["init_costs"], want["init_costs"], rtol=1e-6)
     rows = tev.search_progress_records(_subset(tds), got)
@@ -112,28 +112,50 @@ def test_port_evaluate_matches_jax_evaluate():
     assert np.all(w["gaps"] > -1e-4)  # optimal tours up to f32 rounding of the sums
 
 
-def test_cli_runs_on_cpu(tmp_path, capsys):
+def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     data = tmp_path / "tsp20"
     data.mkdir()
     for name in ("instances.npz", "scalers.json"):
         (data / name).symlink_to(ROOT / "data" / "tsp20" / name)
     (data / "test.txt").write_text("0\n1\n2\n")
-    tcli.main([str(data / "test.txt"), str(ROOT / "models/tsp20/checkpoint_best_val.npz"),
-               str(tmp_path / "runs"), "regret_pred", "--n_iters", "2",
+    npz = str(ROOT / "models/tsp20/checkpoint_best_val.npz")
+    split = str(data / "test.txt")
+    tcli.main([split, npz, str(tmp_path / "runs"), "regret_pred", "--n_iters", "2",
                "--perturbation_moves", "5", "--device", "cpu", "--use_gpu"])
-    assert "mean gap" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "mean gap" in printed and "note: the pallas engine" in printed
     import pandas as pd
 
-    (pkl,) = (tmp_path / "runs").iterdir()
-    df = pd.read_pickle(pkl)
-    assert {"instance", "time", "cost", "opt_cost", "best_cost", "gap", "dt"} <= set(df.columns)
-    assert len(df) == 3 * 2
-    with pytest.raises(NotImplementedError):  # wall-clock budget
-        tcli.main([str(data / "test.txt"), "x.npz", str(tmp_path / "r2"), "weight",
-                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        tcli.main([str(data / "test.txt"), "x.npz", str(tmp_path / "r2"), "weight",
-                   "--n_iters", "1", "--protocol_10s", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        tcli.main([str(data / "test.txt"), str(tmp_path / "m.pt"), str(tmp_path / "r2"),
-                   "regret_pred", "--n_iters", "1", "--device", "cpu"])
+    def frame(run):
+        (pkl,) = (tmp_path / run).iterdir()
+        df = pd.read_pickle(pkl)
+        assert {"instance", "time", "cost", "opt_cost", "best_cost", "gap", "dt"} <= set(df.columns)
+        return df
+
+    assert len(frame("runs")) == 3 * 2
+    # the reference's default: a wall-clock budget, one trace row per accepted move
+    tcli.main([split, npz, str(tmp_path / "wall"), "regret_pred", "--time_limit", "0.5",
+               "--perturbation_moves", "5", "--device", "cpu"])
+    assert "note:" not in capsys.readouterr().out
+    df = frame("wall")
+    assert len(df) >= 3 and (df.groupby("instance")["dt"].max() <= 60).all()
+    tcli.main([split, npz, str(tmp_path / "xla"), "weight", "--n_iters", "2",
+               "--engine", "xla", "--perturbation_moves", "5", "--device", "cpu"])
+    assert len(frame("xla")) > 3 * 2  # per-move rows
+    # the 10 s protocol, its tsp20 target scaled down to keep the calibration short
+    monkeypatch.setitem(tev.REFERENCE_10S_MOVES, 20, 60.0)
+    tcli.main([split, npz, str(tmp_path / "proto"), "weight", "--protocol_10s",
+               "--device", "cpu"])
+    assert "10s-protocol calibrated budget: n_iters=" in capsys.readouterr().out
+    # a reference .pt checkpoint with params.json beside it
+    model_dir = tmp_path / "pt"
+    model_dir.mkdir()
+    (model_dir / "params.json").symlink_to(ROOT / "models" / "tsp20" / "params.json")
+    from gnngls_tpu_torch.models import torch_import
+
+    torch.save({"model_state_dict": torch_import.state_dict_from_params(
+        load_model(npz, RegretGNNConfig())), "epoch": 1}, model_dir / "best.pt")
+    tcli.main([split, str(model_dir / "best.pt"), str(tmp_path / "runs_pt"), "regret_pred",
+               "--n_iters", "2", "--perturbation_moves", "5", "--device", "cpu"])
+    pd.testing.assert_frame_equal(frame("runs_pt")[["instance", "cost", "gap"]],
+                                  frame("runs")[["instance", "cost", "gap"]])

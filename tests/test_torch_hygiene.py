@@ -4,7 +4,8 @@
   gnngls_tpu, pandas, networkx and matplotlib out of sys.modules (checked in
   a fresh interpreter, against the modules present before the imports).
 * Without a card the entry points raise unless device="cpu" is asked for.
-* Modes the slice does not port raise NotImplementedError.
+* Modes not ported yet raise NotImplementedError (the `chunked` and `bf16`
+  GAT routes, the exact solvers); the evaluation modes ported since run.
 """
 
 import pathlib
@@ -17,6 +18,8 @@ import torch
 
 from gnngls_tpu_torch import evaluate as tev
 from gnngls_tpu_torch.data import dataset as tds
+from gnngls_tpu_torch.data import generate as tgen
+from gnngls_tpu_torch.models.regret_gat import gat_conv_for
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -74,15 +77,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tev.evaluate(_tiny(), guides=["weight"], time_limit=1.0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tev.evaluate(_tiny(), guides=["weight"], n_iters=1, first_improvement=True,
-                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        tds.TSPDataset.from_reference_dir(ROOT / "data" / "tsp10" / "test.txt")
+    for impl in ("chunked", "bf16"):
+        with pytest.raises(NotImplementedError):
+            gat_conv_for(impl)
+    for solver in ("held_karp", "concorde"):
+        with pytest.raises(NotImplementedError):
+            tgen.resolve_solver(30, solver)
     with pytest.raises(ValueError):
         tev.evaluate(_tiny(), guides=["regret_pred"], n_iters=1, device="cpu")
+    # ported: a wall-clock budget, first-improvement, the reference's own inputs
+    out = tev.evaluate(_tiny(), guides=["weight"], time_limit=0.05, device="cpu")
+    assert out["engine"] == "xla" and len(out["result"].chunk_times) >= 2
+    out = tev.evaluate(_tiny(), guides=["weight"], n_iters=1, first_improvement=True,
+                       device="cpu")
+    assert out["engine"] == "xla" and np.isfinite(out["mean_gap"])
+    with pytest.raises(FileNotFoundError):  # a reader now, not a NotImplementedError
+        tds.TSPDataset.from_reference_dir(ROOT / "data" / "tsp10" / "missing.txt")
 
 
 def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):

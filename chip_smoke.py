@@ -92,6 +92,20 @@ and prints no result line:
      REFERENCE_10S_MOVES[100], weight guide, through K1; (f) the shipped
      checkpoint exported to a reference .pt under build/ and loaded back:
      predictions on instances 0-63 equal to the npz model's bit for bit.
+ 15. training (no kernel on its path: autograd through the plain `fast`
+     route): (a) one train step on the card against the CPU (embed 32, 4
+     heads, depth 4, n=20, batch 8, seeded), in float64 and float32: loss,
+     every gradient leaf and the BatchNorm running statistics; (b)
+     train_model resumed from the shipped checkpoint (Adam at count 1638) on
+     data/tsp100's 2000 train and 200 val instances at the shipped
+     params.json settings (embed 128, 8 heads, depth 8, batch 32, the val
+     set monitored) for exactly epoch 26, 63 steps, into a temporary run
+     directory: start epoch, lr and the Adam count checked, losses finite
+     and within twice the checkpoint's, steps/s, training edges/s and peak
+     device memory printed; (c) that run's checkpoint through
+     models.convert.load_model: K2's predictions on the 500 test instances
+     (batch 64) against the fast route's, then evaluate at n_iters 100 and
+     its mean gap.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -102,6 +116,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -129,6 +144,17 @@ FORBIDDEN = ("jax", "gnngls_tpu", "pandas", "networkx", "matplotlib")
 FIXTURE100 = "gnngls_tpu_torch/testdata/jax_tsp100_test64_it100.json"
 FI_FIXTURE = "gnngls_tpu_torch/testdata/jax_tsp100_test16_fi_it20.json"
 FI_RTOL = 1e-6  # best costs of the first-improvement search against the JAX fixture
+# Training on the card against the CPU (phase 15a): the loss within TRAIN_LOSS_RTOL;
+# each gradient leaf and running statistic within TRAIN_TOL64 (float64) or TRAIN_TOL32
+# (float32) of its largest value, or of the largest over all leaves where its own is
+# below VANISHING of that (a gradient that vanishes in exact arithmetic, as a bias
+# before a BatchNorm has, holds only rounding noise).  float32 needs the wider bar:
+# the two devices' f32 forwards may take different sides of a ReLU kink, which moves
+# that FFN's gradients by about 1e-3 of their scale (1.2e-3 for the CPU's own f32
+# against its f64 at this shape).
+TRAIN_LOSS_RTOL, TRAIN_TOL64, TRAIN_TOL32, VANISHING = 1e-5, 1e-6, 1e-2, 1e-4
+RESUME_EPOCH = 26  # the shipped checkpoint ends at epoch 25 (count 1638 = 26 x 63)
+TRAIN_WARMUP = 3  # train steps left out of the steps/s figure
 
 
 class SmokeFailure(Exception):
@@ -1273,6 +1299,146 @@ def phase14f_pt_checkpoint(model, ds, dev):
         f"0-{BATCH - 1} bit for bit as the npz checkpoint")
 
 
+def train_step_on(model, dev, dtype, x, y):
+    """One train step of a copy of `model` on `dev` in `dtype`: (loss, the
+    gradient of every leaf, the BatchNorm running statistics), in float64
+    on the host."""
+    import copy
+
+    import torch
+
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    m = copy.deepcopy(model).to(device=dev, dtype=dtype)
+    loss = train_step(m, make_optimizer(m), torch.as_tensor(x, dtype=dtype, device=dev),
+                      torch.as_tensor(y, dtype=dtype, device=dev))
+    grads = {k: p.grad.double().cpu() for k, p in m.named_parameters()}
+    stats = {k: t.double().cpu() for k, t in m.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return float(loss), grads, stats
+
+
+def phase15a_train_step(dev):
+    """One train step on the card against the same step on the CPU, at embed
+    32, 4 heads, depth 4, n=20, batch 8, from a seeded init_params and
+    seeded inputs, in float64 and in the trainer's float32."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, init_params
+
+    n, B = 20, 8
+    rng = np.random.default_rng(15)
+    x = rng.random((B, n * (n - 1) // 2, 1)).astype(np.float32)
+    y = rng.random((B, n * (n - 1) // 2, 1)).astype(np.float32)
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4), torch.Generator().manual_seed(15))
+    for dtype, tol in ((torch.float64, TRAIN_TOL64), (torch.float32, TRAIN_TOL32)):
+        got, want = train_step_on(model, dev, dtype, x, y), train_step_on(model, "cpu", dtype, x, y)
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        require(math.isfinite(got[0]) and rel <= TRAIN_LOSS_RTOL,
+                f"train step {dtype}: loss {got[0]} vs the CPU's {want[0]}")
+        worst = {}
+        for what, a, b in (("grad", got[1], want[1]), ("bn", got[2], want[2])):
+            top = max(float(v.abs().max()) for v in b.values())
+            for key in b:
+                scale = float(b[key].abs().max())
+                bar = tol * (scale if scale >= VANISHING * top else top)
+                err = float((a[key] - b[key]).abs().max())
+                require(err <= bar, f"train step {dtype}: {what} {key} differs by {err:.3e} "
+                        f"> {bar:.3e}")
+                worst[what] = max(worst.get(what, 0.0), err / (bar / tol))
+        log(f"  train step {str(dtype)[6:]}: card vs CPU loss rel {rel:.3e}, gradients within "
+            f"{worst['grad']:.3e} and running statistics within {worst['bn']:.3e} of each "
+            f"leaf's largest value (bar {tol})")
+    log("phase 15a: one train step on the card matches the CPU")
+
+
+def phase15b_resume(dev, run_dir):
+    """train_model resumed from the shipped checkpoint on data/tsp100 at the
+    shipped params.json settings for exactly epoch 26 (63 steps)."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.train import loop
+
+    pj = json.loads((ROOT / "models/tsp100/params.json").read_text())
+    cfg = loop.TrainConfig(**{**pj, "n_epochs": RESUME_EPOCH + 1})
+    scalers = ROOT / "data/tsp100/scalers.json"
+    sets = [TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz",
+                                ROOT / f"data/tsp100/{split}.txt", scalers_file=scalers)
+            for split in ("train", "val")]
+    ckpt = ROOT / "models/tsp100/checkpoint_best_val.npz"
+    with np.load(ckpt) as z:
+        shipped = json.loads(bytes(z["__meta__"].tobytes()).decode())
+        count0 = int(z["opt_state::count"])
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stamps = []
+    t = time.time()
+    _, history = loop.train_model(*sets, cfg, run_dir, verbose=False, resume_from=ckpt,
+                                  device=dev, step_times=stamps)
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    require([r["epoch"] for r in history] == [RESUME_EPOCH],
+            f"resumed run trained epochs {[r['epoch'] for r in history]}, expected [26]")
+    row_ = history[0]
+    lr = cfg.lr_init * cfg.lr_decay ** RESUME_EPOCH
+    require(abs(row_["lr"] - lr) <= 1e-12 * lr, f"resumed lr {row_['lr']} != {lr}")
+    require(math.isfinite(row_["loss"]) and math.isfinite(row_["val_loss"]), "loss not finite")
+    N, bs = len(sets[0]), cfg.batch_size
+    sizes = [min(bs, N - s) for s in range(0, N, bs)]
+    require(len(stamps) == len(sizes), f"{len(stamps)} train steps, expected {len(sizes)}")
+    timed = len(sizes) - TRAIN_WARMUP - 1
+    span = stamps[-1] - stamps[TRAIN_WARMUP]
+    edges = sum(sizes[TRAIN_WARMUP + 1:]) * sets[0].features.shape[1]
+    with np.load(run_dir / "checkpoint_final.npz") as z:
+        count = int(z["opt_state::count"])
+    log(f"phase 15b: epoch {row_['epoch']} resumed from the shipped checkpoint (count {count0} "
+        f"-> {count}) in {wall:.1f} s: train loss {row_['loss']:.6f} (checkpoint "
+        f"{shipped['loss']:.6f}), val loss {row_['val_loss']:.6f} (checkpoint "
+        f"{shipped['val_loss']:.6f}), lr {row_['lr']:.6e}; kernel launches {counts}")
+    log(f"  {len(sizes)} steps at batch {bs}, n={sets[0].n_nodes}; steps {TRAIN_WARMUP + 1}-"
+        f"{len(sizes)}: {timed / span:.4g} steps/s, {edges / span:.4g} training edges/s; "
+        f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    require(count == count0 + len(sizes), f"Adam count {count}, expected {count0 + len(sizes)}")
+    require(row_["loss"] <= 2 * shipped["loss"] and row_["val_loss"] <= 2 * shipped["val_loss"],
+            "the resumed epoch's losses exceed twice the checkpoint's")
+
+
+def phase15c_serve(dev, run_dir, ds):
+    """The trained checkpoint on the serving path: K2's predictions against
+    the fast route's, then evaluate at n_iters 100."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import evaluate, predict_regret
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+
+    model = load_model(run_dir / "checkpoint_final.npz", RegretGNNConfig(), device=dev)
+    kernels.reset_launch_counts()
+    k2 = predict_regret(model, ds, batch_size=BATCH, device=dev)
+    counts = dict(kernels.launches)
+    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH)}
+    require(counts == want, f"trained-model prediction launches {counts}, expected {want}")
+    fast = predict_regret(model, ds, batch_size=BATCH, device=dev, gat_impl="fast")
+    ab, rel = errs(torch.as_tensor(k2), torch.as_tensor(fast))
+    log(f"phase 15c: the trained weights through K2 on {len(ds)} instances ({counts}): max abs "
+        f"difference from the fast route {ab:.3e}, rel {rel:.3e} (tol {K2_REL_TOL})")
+    require(bool(np.isfinite(k2).all()) and rel <= K2_REL_TOL,
+            "K2's predictions with the trained weights differ from the fast route's")
+    out = evaluate(ds, model=model, guides=["regret_pred"], n_iters=N_ITERS,
+                   perturbation_moves=PM, batch_size=BATCH, device=dev)
+    gaps = out["gaps"]
+    log(f"  evaluate (n_iters {N_ITERS}, pm {PM}): gap mean {gaps.mean():.4f}%  median "
+        f"{np.median(gaps):.4f}%  max {gaps.max():.4f}% (shipped weights, phase 3: "
+        f"{PARENT_GAP100[0]:.4f}%)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1353,9 +1519,15 @@ def main(argv=None) -> int:
         phase14d_first_improvement(ds, dev)
         phase14e_protocol(ds, dev)
         phase14f_pt_checkpoint(model, ds, dev)
+        log("phase 14: done")
+        phase15a_train_step(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            run_dir = pathlib.Path(tmp) / "train"
+            phase15b_resume(dev, run_dir)
+            phase15c_serve(dev, run_dir, ds)
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 14: done on {card}")
+        log(f"phase 15: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

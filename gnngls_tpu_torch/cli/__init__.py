@@ -1,5 +1,7 @@
-"""Command-line entry point of the port:
+"""Command-line entry points of the port:
 
   python -m gnngls_tpu_torch.cli.test <data_path> <model_path> <run_dir> <guides...>
-        --n_iters N [--perturbation_moves --batch_size --device cuda|cpu --use_gpu]
+        [--n_iters N --time_limit S --perturbation_moves --batch_size --device cuda|cpu]
+  python -m gnngls_tpu_torch.cli.train <data_dir> <tb_dir>
+        [--embed_dim --n_heads --batch_size --n_epochs --resume --strict_val --device cuda|cpu]
 """

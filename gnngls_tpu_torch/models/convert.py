@@ -1,4 +1,4 @@
-"""Weights from gnngls_tpu's flat npz key layout into `RegretGNN`.
+"""Weights between gnngls_tpu's flat npz key layout and `RegretGNN`, both ways.
 
 Keys (as gnngls_tpu/train/checkpoint.py flattens the JAX pytrees):
   params::embed/{w,b}, params::decision/{w,b},
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 _LAYER_KEY = re.compile(r"^(params|bn_state)::layers/(\d+)/(.+)$")
+_BN_STATE_NAME = re.compile(r"^layers\.\d+\.bn[12]\.(mean|var)$")
 
 
 def port_name(key: str) -> str:
@@ -28,6 +29,21 @@ def port_name(key: str) -> str:
     if key.startswith("params::"):
         return key[len("params::"):].replace("/", ".")
     raise KeyError(f"unexpected checkpoint key {key!r}")
+
+
+def jax_key(name: str) -> str:
+    """The flat `params::`/`bn_state::` key of a `RegretGNN` state-dict name
+    (the inverse of `port_name`)."""
+    tree = "bn_state" if _BN_STATE_NAME.match(name) else "params"
+    return f"{tree}::{name.replace('.', '/')}"
+
+
+def jax_numpy_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A `RegretGNN` state dict -> flat f32 arrays under gnngls_tpu's keys,
+    the `params::` entries first, in the order gnngls_tpu flattens them."""
+    flat = {jax_key(name): t.detach().cpu().numpy().astype(np.float32)
+            for name, t in state.items()}
+    return dict(sorted(flat.items(), key=lambda kv: kv[0].startswith("bn_state::")))
 
 
 def state_from_jax_numpy(blobs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

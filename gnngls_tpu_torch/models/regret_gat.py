@@ -1,4 +1,4 @@
-"""Edge-regret model, eval mode (gnngls_tpu/models/regret_gat.py).
+"""Edge-regret model (gnngls_tpu/models/regret_gat.py).
 
   x -> Linear(in, embed)
     -> depth x [h = x + GATConv(x); BN; h = h + FFN(h); BN]
@@ -8,9 +8,15 @@ As in the reference, the layer stack is built `for _ in range(n_heads)`, so
 the depth is `n_heads` unless `depth_from_heads=False`; the shipped
 checkpoints depend on it.
 
+In train() mode each BatchNorm normalises with the batch statistics and
+updates its running statistics; the GATConv must then be a route autograd
+runs through (TRAIN_ROUTES): the kernel routes have no backward, in either
+package.
+
 Numerics: the JAX model runs every matmul in full f32 (HIGHEST).  `forward`
 therefore turns TF32 off for cuBLAS and cuDNN (torch.backends.cuda.matmul.
-allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False) before it runs.
+allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False) before it runs,
+in either mode.
 """
 
 from __future__ import annotations
@@ -23,14 +29,18 @@ import torch
 from torch import nn
 
 from ..core.graph import build_topology, n_from_edges
-from ..ops.gat import GATParams, gat_conv, gat_conv_naive
+from ..ops.gat import GATParams, gat_conv, gat_conv_naive, init_gat_params
 from ..ops.gat_group import gat_conv_group
 from ..ops.gat_group_sep import gat_conv_group_sep
 from ..ops.gat_sep import gat_conv_sep
 from ..ops.linear import Linear
-from ..ops.norm import BatchNormEval
+from ..ops.norm import BatchNorm
 
 HIDDEN_DIM = 512
+# GATConv routes that train (plain torch under autograd, gradients held to
+# JAX's); JAX's trainer runs "fast".  "sep_fast" trains in JAX too, but the
+# port's bf16 payload gradients are not held to JAX's yet (ROADMAP queue 1).
+TRAIN_ROUTES = ("fast", "naive", "sep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +83,10 @@ class AttentionLayer(nn.Module):
     def __init__(self, cfg: RegretGNNConfig):
         super().__init__()
         self.gat = GATConvParams(cfg.embed_dim, cfg.n_heads, cfg.head_dim)
-        self.bn1 = BatchNormEval(cfg.embed_dim)
+        self.bn1 = BatchNorm(cfg.embed_dim)
         self.ffn1 = Linear(cfg.embed_dim, cfg.hidden_dim)
         self.ffn2 = Linear(cfg.hidden_dim, cfg.embed_dim)
-        self.bn2 = BatchNormEval(cfg.embed_dim)
+        self.bn2 = BatchNorm(cfg.embed_dim)
 
 
 def gat_conv_for(gat_impl: str):
@@ -119,9 +129,10 @@ def gat_conv_for(gat_impl: str):
 
 
 class RegretGNN(nn.Module):
-    """Eval-only model.  Its GATConv runs through the route `gat_impl` names
-    (`gat_conv_for`); the default is the group kernel (K2 or K3 on the card,
-    the plain twin on the CPU)."""
+    """The model, made in eval mode.  Its GATConv runs through the route
+    `gat_impl` names (`gat_conv_for`); the default is the group kernel (K2 or
+    K3 on the card, the plain twin on the CPU), which has no backward: in
+    train() mode pass one of TRAIN_ROUTES."""
 
     def __init__(self, cfg: RegretGNNConfig):
         super().__init__()
@@ -136,10 +147,13 @@ class RegretGNN(nn.Module):
         """x (B, E, in_dim) or (E, in_dim) -> (B, E, out_dim) or (E, out_dim).
         `taps` collects the embedding and every layer's output when a list is
         given, with x's batch axes."""
-        if self.training:
-            raise NotImplementedError("training mode waits for the training "
-                                      "slice of the port; call .eval()")
         conv = gat_conv_for(gat_impl)
+        if self.training and gat_impl == "sep_fast":
+            raise NotImplementedError("training through gat_impl 'sep_fast' waits for a "
+                                      "later slice of the port (ROADMAP queue 1)")
+        if self.training and gat_impl not in TRAIN_ROUTES:
+            raise ValueError(f"gat_impl {gat_impl!r} has no backward; in train() mode "
+                             f"use one of {TRAIN_ROUTES}")
         squeeze = x.dim() == 2
         if squeeze:
             x = x[None]
@@ -157,3 +171,27 @@ class RegretGNN(nn.Module):
             if taps is not None:
                 taps.append(unbatch(h))
         return unbatch(self.decision(h))
+
+
+def init_params(cfg: RegretGNNConfig, generator: Optional[torch.Generator] = None) -> RegretGNN:
+    """A `RegretGNN` with freshly drawn weights, from the distributions of
+    gnngls_tpu's `init_params`: torch.nn.Linear's uniform for the embedding,
+    the FFNs and the decision layer, DGL's Xavier-normal for each GATConv,
+    BatchNorm at scale 1, bias 0, mean 0, var 1.  Torch cannot reproduce
+    jax.random's draws, only their distributions."""
+    model = RegretGNN(cfg)
+    model.embed.reset_parameters(generator)
+    with torch.no_grad():
+        for layer in model.layers:
+            for dst, src in zip(layer.gat.params(), init_gat_params(
+                    cfg.embed_dim, cfg.n_heads, cfg.head_dim, generator)):
+                dst.copy_(src)
+            layer.ffn1.reset_parameters(generator)
+            layer.ffn2.reset_parameters(generator)
+    model.decision.reset_parameters(generator)
+    return model
+
+
+def count_params(model: nn.Module) -> int:
+    """Trainable parameters (the BatchNorm running statistics are not)."""
+    return sum(p.numel() for p in model.parameters())

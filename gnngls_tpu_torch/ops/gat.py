@@ -16,7 +16,8 @@ wrappers, sit at the end.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +31,21 @@ class GATParams(NamedTuple):
     fc_w: torch.Tensor  # (C_in, H*F)
     attn_l: torch.Tensor  # (H, F)
     attn_r: torch.Tensor  # (H, F)
+
+
+def init_gat_params(c_in: int, n_heads: int, head_dim: int,
+                    generator: Optional[torch.Generator] = None) -> GATParams:
+    """DGL GATConv's initialisation, as gnngls_tpu/ops/gat.py draws it:
+    Xavier-normal with gain sqrt(2), std = gain * sqrt(2 / (fan_in + fan_out)),
+    with fans (c_in, H*F) for fc_w and (F, F) for attn_l and attn_r."""
+    def xavier_normal(shape, fan_in, fan_out):
+        std = math.sqrt(2.0) * math.sqrt(2.0 / (fan_in + fan_out))
+        return std * torch.randn(shape, generator=generator)
+
+    hf = n_heads * head_dim
+    return GATParams(xavier_normal((c_in, hf), c_in, hf),
+                     xavier_normal((n_heads, head_dim), head_dim, head_dim),
+                     xavier_normal((n_heads, head_dim), head_dim, head_dim))
 
 
 def leaky(s: torch.Tensor) -> torch.Tensor:

@@ -168,10 +168,11 @@ def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[np.ndarray]):
 
 
 def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
-                     perturbation_moves: int = 20, device="cuda") -> BatchResult:
-    """Fixed-budget GLS for the whole batch in one `gls_whole` call."""
+                     perturbation_moves: int = 20, device=None) -> BatchResult:
+    """Fixed-budget GLS for the whole batch in one `gls_whole` call, on
+    `device` (cuda unless "cpu" is asked for)."""
     Ds = np.ascontiguousarray(Ds, dtype=np.float32)
-    dev = torch.device(device)
+    dev = _device(device)
     D_t = torch.as_tensor(Ds, device=dev)
     G_t = torch.as_tensor(np.ascontiguousarray(guide_stack, dtype=np.float32), device=dev)
     T_t = torch.as_tensor(np.ascontiguousarray(init_tours, dtype=np.int32), device=dev)

@@ -3,12 +3,13 @@ the whole-GLS kernel's twin (gnngls_tpu/search/pallas_gls.py's outputs) and
 the per-move engine (gnngls_tpu/search/local_search.py), on one pair of loops.
 
 Per instance:
-  * k = 0.1 * init_cost / n from the cost before the initial local search.
+  * k = 0.1 * init_cost / n from the cost before the initial local search,
+    unless the caller gives k.
   * Local search: a round applies the best 2-opt, then the best relocate,
     each only if it improves; cost += delta.  Rounds run while one of them
-    improved, at most 10 n.
+    improved, at most max_ls_iters (by default 10 n).
   * Perturbation rounds run while fewer than pm moves were accepted and
-    fewer than 3 pm rounds ran.  A round takes the first tour edge (u, v)
+    fewer than max_pert_iters rounds (by default 3 pm) ran.  A round takes the first tour edge (u, v)
     of largest guide / (1 + penalty), penalties read before the bump, bumps
     its penalty symmetrically, then for u and then v, skipping the depot:
     one-to-all 2-opt at the endpoint's position under D + k*P, then
@@ -93,10 +94,26 @@ def clone_state(state: GLSState) -> GLSState:
                           trace=trace, work=state.work.clone())
 
 
-def _local_search(D, t, cost, trace, work, first_improvement=False):
+class LSResult(NamedTuple):
+    tour: torch.Tensor  # (B, n+1) int64
+    cost: torch.Tensor  # (B,) f32
+    trace: Trace
+
+
+def local_search(tour: torch.Tensor, cost: torch.Tensor, D: torch.Tensor, trace: Trace,
+                 max_iters: int = 0, first_improvement: bool = False,
+                 work: Optional[torch.Tensor] = None) -> LSResult:
+    """Rounds of the best (or first) 2-opt, then relocate, on D (B, n, n)
+    until a round makes no move, at most max_iters rounds (0: 10 n).  Updates
+    the trace, and `work` (B, 2) when given, in place."""
     n = D.shape[1]
+    if max_iters <= 0:
+        max_iters = 10 * n
+    if work is None:
+        work = torch.zeros((tour.shape[0], 2), dtype=torch.int32, device=D.device)
+    t = tour
     active = torch.ones(t.shape[0], dtype=torch.bool, device=D.device)
-    for _ in range(10 * n):
+    for _ in range(max_iters):
         if not bool(active.any()):
             break
         work[:, 0] += active.int()
@@ -111,15 +128,16 @@ def _local_search(D, t, cost, trace, work, first_improvement=False):
         cost = torch.where(f2, cost + d, cost)
         _record(trace, cost, f2)
         active = f1 | f2
-    return t, cost
+    return LSResult(t, cost, trace)
 
 
-def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, first_improvement=False):
-    """Updates P, the trace and work in place; returns the tours and costs."""
+def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improvement=False):
+    """At most max_iters rounds; updates P, the trace and work in place and
+    returns the tours and costs."""
     B, n, _ = D.shape
     b = torch.arange(B, device=D.device)
     made = torch.zeros(B, dtype=torch.int32, device=D.device)
-    for _ in range(3 * pm):
+    for _ in range(max_iters):
         act = made < pm
         if not bool(act.any()):
             break
@@ -151,28 +169,41 @@ def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, first_improvement=False
 
 
 def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[int] = 1024,
-             first_improvement: bool = False) -> GLSState:
+             max_ls_iters: int = 0, k=None, first_improvement: bool = False) -> GLSState:
     """The initial local search on true weights.  D (B, n, n) f32,
-    init_tours (B, n+1) int; runs on D's device."""
+    init_tours (B, n+1) int; runs on D's device.  k, a (B,) tensor or a
+    scalar, overrides the penalty scale 0.1 * init_cost / n (the forced-edge
+    label oracles set it from the unreduced tour); max_ls_iters bounds the
+    local search's rounds (0: 10 n)."""
     B, n, _ = D.shape
     t = init_tours.to(device=D.device, dtype=torch.long)
     cost = mv.tour_costs(D, t)
-    k = (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
+    if k is None:
+        k = (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
+    else:
+        k = torch.as_tensor(k, dtype=torch.float32, device=D.device).expand(B).clone()
     trace = make_trace(B, trace_cap, D.device)
     work = torch.zeros((B, 2), dtype=torch.int32, device=D.device)
-    t, cost = _local_search(D, t, cost, trace, work, first_improvement)
+    t, cost, _ = local_search(t, cost, D, trace, max_ls_iters, first_improvement, work)
     return GLSState(t, cost, t, cost, torch.zeros_like(D), k, 0, trace, work)
 
 
 def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
-                  perturbation_moves: int, first_improvement: bool = False) -> GLSState:
+                  perturbation_moves: int, max_pert_iters: int = 0, max_ls_iters: int = 0,
+                  first_improvement: bool = False) -> GLSState:
     """One outer iteration: perturb under guide iter_i % G, re-optimise on
     true weights, keep a strictly better tour.  Updates the state's
-    penalties, trace and work in place.  guides (B, G, n, n)."""
+    penalties, trace and work in place.  guides (B, G, n, n).  The
+    perturbation runs at most max_pert_iters rounds (0: 3 pm), the local
+    search at most max_ls_iters (0: 10 n)."""
+    if max_pert_iters <= 0:
+        max_pert_iters = 3 * perturbation_moves
     guide = guides[:, state.iter_i % guides.shape[1]]
     t, cost = _perturbation(D, guide, state.penalties, state.k, state.tour, state.cost,
-                            state.trace, state.work, perturbation_moves, first_improvement)
-    t, cost = _local_search(D, t, cost, state.trace, state.work, first_improvement)
+                            state.trace, state.work, perturbation_moves, max_pert_iters,
+                            first_improvement)
+    t, cost, _ = local_search(t, cost, D, state.trace, max_ls_iters, first_improvement,
+                              state.work)
     better = cost < state.best_cost
     return state._replace(tour=t, cost=cost,
                           best_tour=torch.where(better[:, None], t, state.best_tour),
@@ -182,12 +213,14 @@ def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
 
 def guided_local_search(D: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor, *,
                         n_iters: int, perturbation_moves: int = 20,
-                        trace_cap: Optional[int] = 1024,
+                        trace_cap: Optional[int] = 1024, k=None,
                         first_improvement: bool = False) -> GLSState:
-    """Fixed-budget GLS with per-move traces.  guides (B, G, n, n) or (B, n, n)."""
+    """Fixed-budget GLS with per-move traces.  guides (B, G, n, n) or
+    (B, n, n); k as in `gls_init`."""
     if guides.dim() == 3:
         guides = guides[:, None]
-    state = gls_init(D, init_tours, trace_cap=trace_cap, first_improvement=first_improvement)
+    state = gls_init(D, init_tours, trace_cap=trace_cap, k=k,
+                     first_improvement=first_improvement)
     for _ in range(n_iters):
         state = gls_iteration(state, D, guides, perturbation_moves=perturbation_moves,
                               first_improvement=first_improvement)

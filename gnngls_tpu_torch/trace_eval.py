@@ -1,7 +1,8 @@
-"""Where the time of the port's evaluation paths goes on the card.
+"""Where the time of the port's evaluation and training paths goes on the card.
 
     python -m gnngls_tpu_torch.trace_eval [--out DIR] [--n_iters N] [--tsp500]
                                           [--gat_impl NAME] [--time_limit S]
+                                          [--train STEPS]
 
 Default: the tsp100 main path.  Runs `evaluate.evaluate` once to warm up,
 then once more under torch.profiler (CPU and CUDA activities) on the 500
@@ -24,6 +25,11 @@ as benchmarks/tsp500_e2e.py runs it on those predictions (nearest neighbour
 on the regret matrix, the whole-GLS kernel with it as the only guide, the
 same n_iters and perturbation_moves).
 
+--train STEPS: the training path in place of evaluation.  The shipped
+checkpoint with its Adam state (train/checkpoint.restore_checkpoint) at its
+params.json settings (batch 32, gat_impl "fast"); two train steps on
+data/tsp100 train instances warm up, then STEPS more are profiled.
+
 Prints:
   * the wall time of each stage (oracle, inference, search) and the peak
     device memory from evaluate's timings;
@@ -34,8 +40,8 @@ Prints:
     iterations) the search ran.
 The Chrome trace goes to DIR/trace_eval.json (DIR/trace_tsp500.json with
 --tsp500; the route's name appended with --gat_impl, as in
-trace_eval_pallas_mxu.json; trace_eval_wall.json with --time_limit).  Needs
-a CUDA device.
+trace_eval_pallas_mxu.json; trace_eval_wall.json with --time_limit;
+trace_train.json with --train).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ def main(argv=None):
                     help="predict through this GATConv route, then search on the predictions")
     ap.add_argument("--time_limit", type=float, default=None,
                     help="tsp100: search S seconds of wall clock on the per-move engine")
+    ap.add_argument("--train", type=int, default=None, metavar="STEPS",
+                    help="profile STEPS train steps resumed from the shipped checkpoint")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -117,7 +125,32 @@ def main(argv=None):
         return {"timings": {"inference_s": t1 - t0, "search_s": search_s,
                             "total_s": time.time() - t0}}
 
-    if args.tsp500:
+    if args.train is not None:
+        from .train.checkpoint import restore_checkpoint
+        from .train.step import make_optimizer, train_step
+
+        root = ROOT / "data" / "tsp100"
+        train_set = TSPDataset.from_npz(root / "instances.npz", root / "train.txt",
+                                        scalers_file=root / "scalers.json")
+        bs = json.loads((ROOT / "models/tsp100/params.json").read_text())["batch_size"]
+        opt = make_optimizer(model)
+        restore_checkpoint(ROOT / "models/tsp100/checkpoint_best_val.npz", model, opt)
+
+        def run(ds, steps):
+            """`steps` train steps on consecutive batches of the train split."""
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            for i in range(steps):
+                batch = ds.get_scaled_batch(np.arange(i * bs, (i + 1) * bs) % len(ds))
+                float(train_step(model, opt, torch.as_tensor(batch["features"], device=dev),
+                                 torch.as_tensor(batch["regret"], device=dev)))
+            t = time.time() - t0
+            return {"timings": {"train_s": t, "steps_per_s": steps / t,
+                                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}}
+
+        ds, kw = train_set, {"n_iters": args.train}
+        run(ds, 2)  # warm-up: cuBLAS handles, allocator
+    elif args.tsp500:
         kw = dict(model=model, guides=["regret_pred"], n_iters=args.n_iters or 40,
                   perturbation_moves=20, batch_size=16, device=dev)
         run(tsp500(2, 1), 1)  # warm-up at n=500
@@ -143,7 +176,8 @@ def main(argv=None):
         wall = time.time() - t0
     stages.update(out["timings"])
     args.out.mkdir(parents=True, exist_ok=True)
-    stem = "trace_tsp500" if args.tsp500 else "trace_eval"
+    stem = ("trace_train" if args.train is not None
+            else "trace_tsp500" if args.tsp500 else "trace_eval")
     suffix = (f"_{args.gat_impl}" if args.gat_impl
               else "_wall" if args.time_limit is not None else "")
     trace = args.out / f"{stem}{suffix}.json"

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels against their plain twins, on the card; and one
+train step on the card against the CPU, and a resumed run at full width.
 
 Every test here carries the `gpu` marker and skips without a CUDA device.
 The file imports neither jax nor gnngls_tpu, so it also runs where jax is
@@ -368,3 +369,74 @@ def test_per_move_engine_matches_the_kernel(cuda, n, B, iters, pm, G):
     np.testing.assert_array_equal(res.best_tours, out.best_tours.cpu().numpy())
     np.testing.assert_array_equal(res.best_costs, out.best_costs.cpu().numpy())
     np.testing.assert_array_equal(res.work, out.work.cpu().numpy())
+
+
+def _train_step(model, dev, dtype, x, y):
+    import copy
+
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    m = copy.deepcopy(model).to(device=dev, dtype=dtype)
+    loss = train_step(m, make_optimizer(m), torch.as_tensor(x, dtype=dtype, device=dev),
+                      torch.as_tensor(y, dtype=dtype, device=dev))
+    leaves = {k: p.grad for k, p in m.named_parameters()}
+    leaves.update({k: t for k, t in m.state_dict().items() if k.endswith((".mean", ".var"))})
+    return float(loss), {k: v.double().cpu() for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-6), (torch.float32, 1e-2)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    """One train step (chip_smoke.py phase 15a): the loss within 1e-5
+    relative; each gradient leaf and running statistic within tol of its
+    largest value, or of the largest over all leaves where its own is below
+    1e-4 of that (a gradient that vanishes in exact arithmetic holds only
+    rounding noise).  float32 takes 1e-2: the two devices' f32 forwards may
+    take different sides of a ReLU kink, which moves that FFN's gradients by
+    about 1e-3 of their scale."""
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, init_params
+
+    n, B = 20, 8
+    rng = np.random.default_rng(15)
+    x, y = (rng.random((B, n * (n - 1) // 2, 1)).astype(np.float32) for _ in range(2))
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4), torch.Generator().manual_seed(15))
+    got_loss, got = _train_step(model, cuda, dtype, x, y)
+    want_loss, want = _train_step(model, "cpu", dtype, x, y)
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    grads = [k for k in want if not k.endswith((".mean", ".var"))]
+    top = max(float(want[k].abs().max()) for k in grads)
+    for key in want:
+        scale = float(want[key].abs().max())
+        if key in grads and scale < 1e-4 * top:
+            scale = top
+        assert float((got[key] - want[key]).abs().max()) <= tol * scale, key
+
+
+def test_resume_the_shipped_checkpoint_on_the_card(cuda, tmp_path):
+    """A few steps of train_model at full width resumed from the shipped
+    checkpoint: finite losses, epoch 26 at lr 1e-3 * 0.99**26, Adam's count
+    carried on from 1638."""
+    import json
+    import pathlib
+
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.train import loop
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    ckpt = root / "models/tsp100/checkpoint_best_val.npz"
+    pj = json.loads((root / "models/tsp100/params.json").read_text())
+    cfg = loop.TrainConfig(**{**pj, "n_epochs": 27})
+    sets = []
+    for split, k in (("train", 96), ("val", 32)):
+        ds = TSPDataset.from_npz(root / "data/tsp100/instances.npz",
+                                 root / f"data/tsp100/{split}.txt",
+                                 scalers_file=root / "data/tsp100/scalers.json")
+        sets.append(TSPDataset(ds.coords[:k], ds.features[:k], ds.regret[:k],
+                               ds.in_solution[:k], ds.opt_cost[:k], ds.scalers))
+    _, history = loop.train_model(*sets, cfg, tmp_path, verbose=False, resume_from=ckpt,
+                                  device=cuda)
+    (row,) = history
+    assert row["epoch"] == 26 and row["lr"] == pytest.approx(1e-3 * 0.99 ** 26, rel=1e-12)
+    assert np.isfinite(row["loss"]) and np.isfinite(row["val_loss"])
+    assert row["loss"] < 2 * 0.001972 and row["val_loss"] < 2 * 0.001931
+    with np.load(tmp_path / "checkpoint_final.npz") as z:
+        assert int(z["opt_state::count"]) == int(z["opt_state::inner_state/0/count"]) == 1638 + 3

@@ -5,7 +5,9 @@
   a fresh interpreter, against the modules present before the imports).
 * Without a card the entry points raise unless device="cpu" is asked for.
 * Modes not ported yet raise NotImplementedError (the `chunked` and `bf16`
-  GAT routes, the exact solvers); the evaluation modes ported since run.
+  GAT routes, training through `sep_fast`, the exact solvers); the
+  evaluation modes ported since run, and train mode runs on the plain
+  routes while the kernel routes, which have no backward, refuse it.
 """
 
 import pathlib
@@ -19,7 +21,10 @@ import torch
 from gnngls_tpu_torch import evaluate as tev
 from gnngls_tpu_torch.data import dataset as tds
 from gnngls_tpu_torch.data import generate as tgen
-from gnngls_tpu_torch.models.regret_gat import gat_conv_for
+from gnngls_tpu_torch.cli import train as tcli_train
+from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig, gat_conv_for
+from gnngls_tpu_torch.search import batched as tbatched
+from gnngls_tpu_torch.train import loop as tloop
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -74,12 +79,35 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         tev.resolve_device("cuda")
     out = tev.evaluate(_tiny(), guides=["weight"], n_iters=1, device="cpu")
     assert out["device"] == "cpu" and np.isfinite(out["mean_gap"])
+    # the whole-GLS kernel's entry point, the trainer and its command line
+    D = np.ones((1, 5, 5), np.float32)
+    tour = np.array([[0, 1, 2, 3, 4, 0]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbatched.run_fixed_kernel(D, D[:, None], tour, n_iters=1)
+    res = tbatched.run_fixed_kernel(D, D[:, None], tour, n_iters=1, device="cpu")
+    assert res.best_tours.shape == (1, 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tloop.train_model(_tiny(), _tiny(), tloop.TrainConfig(), ROOT / "missing_run_dir")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli_train.main([str(ROOT / "data" / "tsp10"), str(ROOT / "missing_run_dir")])
+    assert not (ROOT / "missing_run_dir").exists()
 
 
 def test_unported_modes_raise():
     for impl in ("chunked", "bf16"):
         with pytest.raises(NotImplementedError):
             gat_conv_for(impl)
+    # train mode runs (it raised before the training slice) on the plain routes;
+    # the kernel routes have no backward and refuse it, naming the routes that train
+    model = RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).train()
+    x = torch.rand((2, 10, 1))
+    for impl in ("fast", "naive", "sep"):
+        assert model(x, gat_impl=impl).shape == (2, 10, 1)
+    for impl in ("auto", "pallas", "pallas_mxu", "pallas_sep", "pallas_sep_fast"):
+        with pytest.raises(ValueError, match="'fast', 'naive', 'sep'"):
+            model(x, gat_impl=impl)
+    with pytest.raises(NotImplementedError):
+        model(x, gat_impl="sep_fast")
     for solver in ("held_karp", "concorde"):
         with pytest.raises(NotImplementedError):
             tgen.resolve_solver(30, solver)

@@ -133,6 +133,57 @@ def test_run_fixed_matches_jax(first_improvement, G):
         np.testing.assert_array_equal(res.work, out.work.numpy())
 
 
+@pytest.mark.parametrize("first_improvement", [False, True])
+def test_engine_knobs_match_jax(first_improvement):
+    """gls_init(max_ls_iters, k) and gls_iteration(max_pert_iters,
+    max_ls_iters), as JAX's label oracles call them, against JAX's vmapped
+    engine at n=12, B=4: the same tours and move counts, costs within rtol 1e-6."""
+    import jax
+
+    from gnngls_tpu.search import local_search as jls
+
+    n, b, pm, iters = 12, 4, 6, 3
+    Ds = instances(n, b, 5)  # an instance whose initial local search takes 6 rounds
+    stack = np.stack([instances(n, b, 6), Ds], axis=1)
+    inits = np.array(jbatched.nearest_neighbor_batch(jnp.asarray(Ds)))
+    k = np.array([0.05, 0.2, 0.01, 0.1], np.float32)
+    kw = dict(max_ls_iters=3, first_improvement=first_improvement)
+    step = dict(perturbation_moves=pm, max_pert_iters=5, max_ls_iters=3,
+                first_improvement=first_improvement)
+    js = jax.vmap(lambda D, t, kk: jls.gls_init(D, t, trace_cap=256, k=kk, **kw))(
+        jnp.asarray(Ds), jnp.asarray(inits), jnp.asarray(k))
+    ts = tls.gls_init(torch.as_tensor(Ds), torch.as_tensor(inits), trace_cap=256,
+                      k=torch.as_tensor(k), **kw)
+    jstep_fn = jax.vmap(lambda s, D, G: jls.gls_iteration(s, D, G, **step))
+    for it in range(iters + 1):
+        if it:
+            js = jstep_fn(js, jnp.asarray(Ds), jnp.asarray(stack))
+            ts = tls.gls_iteration(ts, torch.as_tensor(Ds), torch.as_tensor(stack), **step)
+        np.testing.assert_array_equal(ts.trace.n.numpy(), np.asarray(js.trace.n))
+        np.testing.assert_array_equal(ts.tour.numpy(), np.asarray(js.tour))
+        np.testing.assert_allclose(ts.cost.numpy(), np.asarray(js.cost), rtol=1e-6)
+        np.testing.assert_allclose(ts.trace.costs.numpy(), np.asarray(js.trace.costs),
+                                   rtol=1e-6)
+    np.testing.assert_array_equal(ts.k.numpy(), k)
+    np.testing.assert_array_equal(ts.best_tour.numpy(), np.asarray(js.best_tour))
+    # the bounds bind: fewer rounds than the defaults (10 n, 3 pm) allow
+    assert int(ts.work[:, 0].max()) <= 3 * (iters + 1) and int(ts.work[:, 1].max()) <= 5 * iters
+    # a scalar k, and k=None's default, 0.1 * init_cost / n
+    s1 = tls.gls_init(torch.as_tensor(Ds), torch.as_tensor(inits), k=0.5)
+    s2 = tls.gls_init(torch.as_tensor(Ds), torch.as_tensor(inits))
+    assert s1.k.shape == (b,) and bool((s1.k == 0.5).all())
+    assert int(s2.work[:, 0].max()) > 3  # the default bound does not bind where 3 did
+    init_cost = tmoves.tour_costs(torch.as_tensor(Ds), torch.as_tensor(inits).long())
+    assert torch.equal(s2.k, (torch.full_like(init_cost, 0.1) * init_cost) / float(n))
+    direct = tls.guided_local_search(torch.as_tensor(Ds), torch.as_tensor(stack),
+                                     torch.as_tensor(inits), n_iters=1, perturbation_moves=pm,
+                                     k=torch.as_tensor(k))
+    assert torch.equal(direct.k, torch.as_tensor(k))
+    ls = tls.local_search(torch.as_tensor(inits).long(), init_cost, torch.as_tensor(Ds),
+                          tls.make_trace(b, 8, "cpu"), max_iters=1)
+    assert bool((ls.trace.n <= 2).all()) and ls.tour.shape == (b, n + 1)
+
+
 def _state_arrays(s):
     return [s.tour, s.cost, s.best_tour, s.best_cost, s.penalties, s.k, s.trace.costs,
             s.trace.n, s.work]

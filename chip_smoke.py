@@ -106,6 +106,25 @@ and prints no result line:
      models.convert.load_model: K2's predictions on the 500 test instances
      (batch 64) against the fast route's, then evaluate at n_iters 100 and
      its mean gap.
+ 16. data generation and regret labels (K1 with its k input): (a) K1 given a
+     k per lane against its plain twin on the card, move for move: the warm
+     forced-edge lanes of raw tsp100 instances 0-1 (all 4,950 edges, both
+     splices: 19,800 lanes) at n_iters 2 and 0 (pm 20), the cold lanes of
+     instance 0 at n_iters 10 pm 30; k=None equal to k set to the kernel's
+     own default; (b) the production label path, with the launch counts
+     reset just before and read just after: warm_labels_chunked on raw tsp100
+     instances 0-63 from their shipped opt_tour (warm_gls_iters 0, dual
+     splice, pm 20, chunk 250: 633,600 K1 lanes); instances 0-7 held to the
+     committed JAX fixture (regret and opt_cost within 4 ulps of f32 at the
+     big-M over opt_cost), agreement with the shipped labels printed, with
+     instances/s, forced-edge problems/s, launches and peak device memory;
+     K1 and its twin timed at one launch of that path, beside the time to
+     build the launch's reduced matrices; (c) both data CLIs on the card:
+     cli/generate_instances.py (32 instances, n=100, GLS oracle at
+     opt_iters 100, warm labels), cli/preprocess_dataset.py, the result read
+     with its scalers.json and one predict_regret batch through K2; (d) the
+     native C++ oracle built on the card's host, against the numpy Held-Karp
+     at n=12.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -155,6 +174,13 @@ FI_RTOL = 1e-6  # best costs of the first-improvement search against the JAX fix
 TRAIN_LOSS_RTOL, TRAIN_TOL64, TRAIN_TOL32, VANISHING = 1e-5, 1e-6, 1e-2, 1e-4
 RESUME_EPOCH = 26  # the shipped checkpoint ends at epoch 25 (count 1638 = 26 x 63)
 TRAIN_WARMUP = 3  # train steps left out of the steps/s figure
+# The label path (phase 16b): raw tsp100 instances 0-63, the production settings.
+LABEL_INST, LABEL_CHUNK, LABEL_PM = 64, 250, 20
+LABEL_FIXTURE = "gnngls_tpu_torch/testdata/jax_tsp100_labels_0to7.npz"
+# Label lanes are held to JAX within TIE_ULPS ulps of f32 at the lane's big-M: the
+# packages' f32 cost sums differ in order, so of two tied tours they may keep either
+# (tests/test_torch_labels.py).
+TIE_ULPS = 4
 
 
 class SmokeFailure(Exception):
@@ -244,8 +270,8 @@ def mxu_tensor_core_flop(B, n, H, F):
 def gls_work(work, n, G, n_iters):
     """(operations, bytes) of the whole GLS for this run's data: its
     local-search and perturbation rounds (the kernel reports them) times the
-    additions of their scans; D and the guides read once, tours, costs and
-    traces written once."""
+    additions of their scans; D and the G guides read once (a guide that is
+    D itself counts as none), tours, costs and traces written once."""
     rounds = work.double().sum(dim=0).tolist()  # (local-search, perturbation) rounds
     B = work.shape[0]
     per_ls = 3 * (n - 2) * (n - 3) / 2 + 5 * (n - 2) ** 2  # adds over all a2a candidates
@@ -1439,6 +1465,292 @@ def phase15c_serve(dev, run_dir, ds):
         f"{PARENT_GAP100[0]:.4f}%)")
 
 
+def tie(M):
+    import numpy as np
+
+    return TIE_ULPS * float(np.spacing(np.float32(M)))
+
+
+def raw_tsp100(k):
+    """Rows 0..k-1 of data/tsp100/instances.npz (the shipped labels included)."""
+    import numpy as np
+
+    with np.load(ROOT / "data/tsp100/instances.npz") as z:
+        return {key: z[key][:k] for key in ("coords", "opt_tour", "opt_cost", "in_solution",
+                                            "regret")}
+
+
+def phase16a_k_input(dev, raw):
+    """K1 given a k per lane against its plain twin on the card, move for move."""
+    import torch
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.data import solvers
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.gls_whole import gls_whole
+    from gnngls_tpu_torch.search.local_search import gls_fixed_plain
+
+    edges = build_topology(100).edges
+    D = coords_to_distance_matrix(raw["coords"][:2]).astype("float64")
+    # 19,800 and 4,950 lanes: each one launch under solvers.MAX_D2_BYTES
+    (_, _, W2, winit, wk), = solvers.warm_lanes(D, edges, raw["opt_tour"][:2],
+                                                dual_splice=True, device=dev)
+    (_, _, C2, cinit, ck), = solvers.cold_lanes(D[0], edges, device=dev)
+    cases = [("warm lanes of instances 0-1", W2, winit, wk, 2, LABEL_PM),
+             ("warm lanes of instances 0-1", W2, winit, wk, 0, LABEL_PM),
+             ("cold lanes of instance 0", C2, cinit, ck, 10, 30)]
+    for name, D2, init, k, iters, pm in cases:
+        got = gls_whole(D2, D2, init, n_iters=iters, perturbation_moves=pm, k=k)
+        torch.cuda.synchronize()
+        want = gls_fixed_plain(D2, D2, init, n_iters=iters, perturbation_moves=pm, k=k)
+        for key in got._fields:
+            require(torch.equal(getattr(got, key), getattr(want, key)),
+                    f"K1 with k, {name}, n_iters {iters}: {key} differs from the plain twin")
+        log(f"  K1 with k, {name} (B={D2.shape[0]}, n_iters {iters}, pm {pm}): identical to "
+            f"the twin ({int(got.moves.sum())} moves, {int(got.work[:, 0].sum())} "
+            f"local-search rounds)")
+    # k=None: the kernel computes k itself, as before the k input; given that same k
+    # explicitly it must give the same bits (the twin's k=None path is unchanged)
+    from gnngls_tpu_torch.search.local_search import penalty_scale
+    from gnngls_tpu_torch.search.moves import tour_costs
+
+    k0 = penalty_scale(tour_costs(W2, winit.long()), 100)
+    own = gls_whole(W2, W2, winit, n_iters=2, perturbation_moves=LABEL_PM)
+    given = gls_whole(W2, W2, winit, n_iters=2, perturbation_moves=LABEL_PM, k=k0)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(own, given)),
+            "K1 with k=None differs from K1 given its own default k")
+    log("phase 16a: K1 with a k input matches its twin move for move; k=None keeps its bits")
+
+
+def stage_clock(secs):
+    """Wraps the label path's stages in their modules until the returned
+    function restores them: host-clock seconds added to `secs` under "lanes"
+    (warm_lanes: the reduced matrices and splices of each launch), "k1",
+    "recost" (the f64 re-costing), "uses_edge" and "batch" (the whole
+    warm_fixed_edge_costs_batch call).  Each stage synchronises the card
+    where it ends, as the copy of K1's results to the host does anyway."""
+    import torch
+
+    from gnngls_tpu_torch.data import solvers
+    from gnngls_tpu_torch.search import gls_whole
+
+    def clocked(key, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t
+            return out
+        return call
+
+    def lanes(*args, **kw):
+        launches = old[solvers, "warm_lanes"](*args, **kw)
+        while True:
+            t = time.perf_counter()
+            item = next(launches, None)
+            torch.cuda.synchronize()
+            secs["lanes"] += time.perf_counter() - t
+            if item is None:
+                return
+            yield item
+            del item  # one launch's stack at a time, as in warm_lanes
+
+    old = {(solvers, "warm_lanes"): solvers.warm_lanes,
+           (solvers, "_costs64"): solvers._costs64,
+           (solvers, "_uses_edge"): solvers._uses_edge,
+           (solvers, "warm_fixed_edge_costs_batch"): solvers.warm_fixed_edge_costs_batch,
+           (gls_whole, "gls_whole"): gls_whole.gls_whole}
+    new = {"warm_lanes": lanes, "_costs64": clocked("recost", solvers._costs64),
+           "_uses_edge": clocked("uses_edge", solvers._uses_edge),
+           "warm_fixed_edge_costs_batch": clocked("batch", solvers.warm_fixed_edge_costs_batch),
+           "gls_whole": clocked("k1", gls_whole.gls_whole)}
+    for (mod, name) in old:
+        setattr(mod, name, new[name])
+    return lambda: [setattr(mod, name, fn) for (mod, name), fn in old.items()]
+
+
+def phase16b_labels(dev, raw):
+    """The production label path over 64 raw tsp100 instances, its stages
+    on the host clock."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.data.labels import warm_labels_chunked
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    N, n = LABEL_INST, 100
+    E = n * (n - 1) // 2
+    data = {k: np.array(v) for k, v in raw.items() if k != "regret"}
+    secs = dict.fromkeys(("lanes", "k1", "recost", "uses_edge", "batch"), 0.0)
+    restore = stage_clock(secs)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            out = warm_labels_chunked(data, tmp, chunk=LABEL_CHUNK, warm_gls_iters=0,
+                                      dual_splice=True, perturbation_moves=LABEL_PM,
+                                      device=dev)
+            wall = time.perf_counter() - t
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = dict(kernels.launches)
+    require(counts.get("gls_whole", 0) > 0, f"the label path did not launch K1: {counts}")
+    regret, tours, opt = out["regret"], out["opt_tour"], out["opt_cost"]
+    D = coords_to_distance_matrix(raw["coords"]).astype(np.float64)
+    require(regret.shape == (N, E) and bool(np.isfinite(regret).all()) and (regret >= 0).all(),
+            "labels: regret not finite and non-negative of shape (64, 4950)")
+    require(not regret[out["in_solution"]].any(), "labels: solution edges with regret")
+    for b in range(N):
+        require(is_valid_tour(n, tours[b]), f"labels: instance {b}'s best tour is invalid")
+    exact = D[np.arange(N)[:, None], tours[:, :-1], tours[:, 1:]].sum(-1)
+    require(np.allclose(exact, opt, rtol=1e-12, atol=0), "labels: opt_cost is not its tour's cost")
+    refined = int((opt < raw["opt_cost"] - 1e-9).sum())
+    with np.load(ROOT / LABEL_FIXTURE) as fx:
+        fx = {k: fx[k] for k in fx.files}
+    k = len(fx["opt_cost"])
+    worst, same = 0.0, 0
+    for b in range(k):
+        M = n * D[b].max() + 1.0
+        d = float(np.abs(regret[b] - fx["regret"][b]).max())
+        worst = max(worst, d)
+        same += int(np.array_equal(regret[b], fx["regret"][b]))
+        require(abs(opt[b] - fx["opt_cost"][b]) <= tie(M) and d <= tie(M) / fx["opt_cost"][b],
+                f"labels: instance {b} differs from the JAX fixture beyond {TIE_ULPS} ulps "
+                f"at M (regret by {d:.3e}, opt_cost by {abs(opt[b] - fx['opt_cost'][b]):.3e})")
+    shipped = np.abs(regret - raw["regret"]).max(axis=1)
+    lanes = N * E * 2
+    log(f"phase 16b: {N} tsp100 instances labelled in {wall:.2f} s ({N / wall:.4g} instances/s, "
+        f"{N * E / wall:.4g} forced-edge problems/s, {lanes / wall:.4g} K1 lanes/s, "
+        f"{wall / N:.4f} s/instance); launches {counts}; peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); {refined} best tours refined")
+    inner = secs["lanes"] + secs["k1"] + secs["recost"] + secs["uses_edge"]
+    log(f"  stages (host clock, s): reduced matrices and splices {secs['lanes']:.4f}, K1 "
+        f"{secs['k1']:.4f}, f64 re-costing {secs['recost']:.4f}, forced-edge check "
+        f"{secs['uses_edge']:.4f}, the oracle call's rest (copies to the host, the "
+        f"splices' choice) {secs['batch'] - inner:.4f}; outside the oracle (distances, "
+        f"refinement, regrets, shard files) {wall - secs['batch']:.4f}")
+    log(f"  vs JAX fixture (instances 0-{k - 1}): {same}/{k} regret rows identical, largest "
+        f"difference {worst:.3e} (tol {TIE_ULPS} ulps at M over opt_cost)")
+    log(f"  vs shipped labels: {int((shipped <= 1e-8).sum())}/{N} instances within 1e-8, "
+        f"{int((shipped <= 1e-6).sum())}/{N} within 1e-6; "
+        f"{float((np.abs(regret - raw['regret']) <= 1e-6).mean()):.4f} of all edges within 1e-6")
+    return counts.get("gls_whole", 0), wall
+
+
+def phase16b_timing(dev, raw):
+    """K1 and its twin at one launch of the label path (its first: the most
+    lanes a launch takes), beside the time to build that launch's inputs."""
+    import torch
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.data import solvers
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.gls_whole import gls_whole
+    from gnngls_tpu_torch.search.local_search import gls_fixed_plain
+
+    edges = build_topology(100).edges
+    D = coords_to_distance_matrix(raw["coords"]).astype("float64")
+
+    def first_launch():
+        return next(solvers.warm_lanes(D, edges, raw["opt_tour"], dual_splice=True,
+                                       device=dev))
+
+    build_ms = cuda_ms(first_launch, reps=3)
+    _, e, D2, init, k = first_launch()
+    res = {}
+
+    def run(fn, key):
+        res[key] = fn(D2, D2, init, n_iters=0, perturbation_moves=LABEL_PM, k=k)
+
+    ms = cuda_ms(lambda: run(gls_whole, "kernel"), reps=3)
+    plain = cuda_ms(lambda: run(gls_fixed_plain, "plain"), reps=1, warmup=0)
+    for key in res["kernel"]._fields:
+        require(torch.equal(getattr(res["kernel"], key), getattr(res["plain"], key)),
+                f"K1 at the label path's launch: {key} differs from the plain twin")
+    ops, nbytes = gls_work(res["kernel"].work, 100, 0, 0)  # the guide is D2 itself: read once
+    err = float((res["kernel"].best_costs - res["plain"].best_costs).abs().max())
+    log(f"  K1 at the label launch (B={e} n=100 n_iters 0, k given): {ms:.3f} ms, plain "
+        f"{plain:.1f} ms, identical; building its reduced matrices and splices {build_ms:.3f} ms")
+    return e, err, ms, plain, ops, nbytes, build_ms
+
+
+def phase16c_clis(dev, model):
+    """Both data CLIs on the card, then the result read and predicted through K2."""
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.cli import generate_instances, preprocess_dataset
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix, load_dataset
+    from gnngls_tpu_torch.evaluate import predict_regret
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp) / "tsp100_generated"
+        kernels.reset_launch_counts()
+        t = time.time()
+        generate_instances.main(["32", "100", str(root), "--solver", "gls",
+                                 "--opt_iters", "100", "--seed", "7"])
+        gen_s = time.time() - t
+        counts = dict(kernels.launches)
+        require(counts.get("gls_whole", 0) >= 2,
+                f"generation did not run the GLS oracle and the labels on K1: {counts}")
+        preprocess_dataset.main([str(root), "--n_train", "24", "--n_test", "4",
+                                 "--n_val", "4", "--seed", "0"])
+        data = load_dataset(root / "instances.npz")
+        D = coords_to_distance_matrix(data["coords"]).astype(np.float64)
+        t_ = data["opt_tour"]
+        cost = D[np.arange(32)[:, None], t_[:, :-1], t_[:, 1:]].sum(-1)
+        require(data["regret"].shape == (32, 4950) and bool(np.isfinite(data["regret"]).all())
+                and (data["regret"] >= 0).all() and not data["regret"][data["in_solution"]].any(),
+                "generated labels are not finite, non-negative and zero on the tours")
+        require(np.allclose(cost, data["opt_cost"], rtol=1e-6), "opt_cost is not its tour's cost")
+        sizes = [len(np.loadtxt(root / f"{s}.txt", ndmin=1)) for s in ("train", "val", "test")]
+        require(sizes == [24, 4, 4], f"split sizes {sizes}")
+        ds = TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
+                                 scalers_file=root / "scalers.json")
+        kernels.reset_launch_counts()
+        pred = predict_regret(model, ds, batch_size=len(ds), device=dev)
+        pcounts = dict(kernels.launches)
+    require(pcounts == {"gat_group": model.cfg.depth}, f"prediction launches {pcounts}")
+    require(pred.shape == (4, 4950) and bool(np.isfinite(pred).all()) and (pred >= 0).all(),
+            "predictions on the generated set are not finite and non-negative")
+    log(f"phase 16c: generate_instances (32 instances, n=100) in {gen_s:.2f} s, launches "
+        f"{counts}; preprocess_dataset split {sizes}; predict_regret on the test split "
+        f"{pcounts}, mean prediction {float(pred.mean()):.4f}")
+
+
+def phase16d_native():
+    """The native C++ oracle built on this host against the numpy Held-Karp."""
+    import numpy as np
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.data import native_oracle, solvers
+    from gnngls_tpu_torch.utils import is_valid_tour, tour_cost
+
+    t = time.time()
+    require(native_oracle.build() and native_oracle.available(), "the native oracle did not build")
+    build_s = time.time() - t
+    n = 12
+    pos = np.random.default_rng(16).random((n, 2))
+    D = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+    tour, cost = native_oracle.held_karp(D)
+    _, want = solvers.held_karp(D)
+    require(abs(cost - want) <= 1e-9 and is_valid_tour(n, tour)
+            and abs(tour_cost(D, tour) - cost) <= 1e-9, "native Held-Karp differs from numpy's")
+    costs, base = native_oracle.regret_costs(D)
+    edges = build_topology(n).edges
+    for e in range(0, len(edges), 11):
+        _, c = solvers.held_karp_fixed_edge(D, tuple(edges[e]))
+        require(abs(costs[e] - c) <= 1e-9, f"native forced-edge cost of edge {e} differs")
+    log(f"phase 16d: native oracle built in {build_s:.1f} s; Held-Karp and forced-edge costs "
+        f"at n={n} equal numpy's (optimum {cost:.6f})")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1525,9 +1837,21 @@ def main(argv=None) -> int:
             run_dir = pathlib.Path(tmp) / "train"
             phase15b_resume(dev, run_dir)
             phase15c_serve(dev, run_dir, ds)
+        log(f"phase 15: done on {card}")
+        raw = raw_tsp100(LABEL_INST)
+        phase16a_k_input(dev, raw)
+        label_launches, _ = phase16b_labels(dev, raw)
+        B, err, ms, plain, ops, nbytes, build_ms = phase16b_timing(dev, raw)
+        rows.append(row("gls_whole_labels", "gnngls_tpu_torch/csrc/gls_whole.cu",
+                        "gnngls_tpu/search/pallas_gls.py:257", label_launches, err, ms, plain,
+                        ops, nbytes, f"labels: shared layout, k given, B={B} n=100, the guide "
+                        f"D2 itself, n_iters=0; launches from phase 16b's 64 instances",
+                        reduced_matrices_ms=build_ms))
+        phase16c_clis(dev, model)
+        phase16d_native()
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 15: done on {card}")
+        log(f"phase 16: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

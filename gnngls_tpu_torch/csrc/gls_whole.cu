@@ -372,8 +372,8 @@ struct Search {
 template <Layout kLayout>
 __global__ void __launch_bounds__(kThreads)
 gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
-                 const int* __restrict__ init, int n, int n_guides, int n_iters, int pm,
-                 float* workspace, int* __restrict__ best_out,
+                 const int* __restrict__ init, const float* __restrict__ k_in, int n,
+                 int n_guides, int n_iters, int pm, float* workspace, int* __restrict__ best_out,
                  float* __restrict__ best_cost_out, int* __restrict__ moves_out,
                  float* __restrict__ trace_c, int* __restrict__ trace_m,
                  int* __restrict__ work_out) {
@@ -437,7 +437,7 @@ gls_whole_kernel(const float* __restrict__ Ds, const float* __restrict__ guides,
   }
   __syncthreads();
   float cost = *s.slot;  // every thread: k comes from the cost before the first LS
-  s.k = __fdiv_rn(__fmul_rn(0.1f, cost), (float)n);
+  s.k = k_in != nullptr ? k_in[b] : __fdiv_rn(__fmul_rn(0.1f, cost), (float)n);
   int moves = 0, ls_rounds = 0, pert_rounds = 0;
   int* best = best_out + (size_t)b * nt;
   s.local_search(cost, moves, ls_rounds);
@@ -497,9 +497,13 @@ extern "C" int gls_whole_max_n() {
 
 // layout: 0 shared (n <= gls_whole_max_n()), 1 global (n <= kMaxN; workspace
 // is a zeroed (B, 2, n, n) f32 buffer: the penalties, then room for D^T).
-// Anything else is refused.
+// Anything else is refused.  k: null, or a (B,) f32 penalty scale per
+// instance in place of 0.1 * (the initial tour's cost on Ds) / n (the
+// forced-edge label oracles search a big-M-reduced Ds and take k from the
+// unreduced tour).  With n_iters = 0 the traces are empty and may be null.
 extern "C" cudaError_t gls_whole_launch(const float* Ds, const float* guides, const int* init,
-                                        int B, int n, int n_guides, int n_iters, int pm,
+                                        const float* k, int B, int n, int n_guides,
+                                        int n_iters, int pm,
                                         int layout, float* workspace,
                                         int* best, float* best_cost, int* moves,
                                         float* trace_c, int* trace_m, int* work, int device,
@@ -517,7 +521,7 @@ extern "C" cudaError_t gls_whole_launch(const float* Ds, const float* guides, co
   auto kernel = global ? gls_whole_kernel<kGlobal> : gls_whole_kernel<kShared>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, kThreads, smem, stream>>>(Ds, guides, init, n, n_guides, n_iters, pm, workspace,
+  kernel<<<B, kThreads, smem, stream>>>(Ds, guides, init, k, n, n_guides, n_iters, pm, workspace,
                                         best, best_cost, moves, trace_c, trace_m, work);
   return cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-"""Array-resident TSP splits (gnngls_tpu/data/dataset.py, eval side).
+"""Array-resident TSP splits (gnngls_tpu/data/dataset.py).
 
 A split is dense arrays over a leading instance axis; every instance shares
-the one static K_n topology.  `from_reference_dir` reads the reference's own
+the one static K_n topology.  `fit_scalers` fits a split's min-max scalers
+and `split_dataset` carves the reference's shuffled train/test/val split
+(both as scripts/preprocess_dataset.py does).  `from_reference_dir` reads the reference's own
 format: a txt listing of pickled networkx graphs with `scalers.pkl` beside
 it (unpickling them needs networkx; this module does not import it).
 """
@@ -10,7 +12,7 @@ from __future__ import annotations
 
 import pathlib
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -47,6 +49,17 @@ class TSPDataset:
     @property
     def feat_dim(self) -> int:
         return self.features.shape[-1] - len(self.feat_drop_idx)
+
+    def fit_scalers(self) -> Dict[str, MinMaxScaler]:
+        """Min-max scalers of this split, by partial_fit over each instance's
+        edge rows, as the reference does; kept in self.scalers."""
+        f = MinMaxScaler()
+        r = MinMaxScaler()
+        for i in range(len(self)):
+            f.partial_fit(self.features[i])
+            r.partial_fit(self.regret[i][:, None])
+        self.scalers = {"features": f, "regret": r}
+        return self.scalers
 
     def get_scaled_batch(self, idx) -> dict:
         """Slice and min-max scale a batch, dropping `feat_drop_idx` columns."""
@@ -133,3 +146,16 @@ class TSPDataset:
         return cls(coords=coords, features=np.stack(features), regret=regret,
                    in_solution=in_sol, opt_cost=opt_cost, scalers=scalers,
                    feat_drop_idx=list(feat_drop_idx))
+
+
+def split_dataset(n_total: int, n_train: int, n_test: int, n_val: int,
+                  seed: Optional[int] = None, rng=None):
+    """Shuffled (train, val, test) index arrays.  The permutation is carved
+    as train, then TEST, then val, the reference's order
+    (scripts/preprocess_dataset.py)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    perm = rng.permutation(n_total)
+    train = perm[:n_train]
+    test = perm[n_train:n_train + n_test]
+    val = perm[n_train + n_test:n_train + n_test + n_val]
+    return train, val, test

@@ -102,7 +102,7 @@ def library() -> ctypes.CDLL:
     lib.gat_sorted_launch.restype = I
     lib.gat_sorted_max_n.argtypes = [I, I]
     lib.gat_sorted_max_n.restype = I
-    lib.gls_whole_launch.argtypes = [P, P, P, I, I, I, I, I, I, P,
+    lib.gls_whole_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
                                      P, P, P, P, P, P, I, P]
     lib.gls_whole_launch.restype = I
     lib.gls_whole_max_n.argtypes = []

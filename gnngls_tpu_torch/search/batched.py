@@ -168,19 +168,21 @@ def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[np.ndarray]):
 
 
 def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
-                     perturbation_moves: int = 20, device=None) -> BatchResult:
+                     perturbation_moves: int = 20, k=None, device=None) -> BatchResult:
     """Fixed-budget GLS for the whole batch in one `gls_whole` call, on
-    `device` (cuda unless "cpu" is asked for)."""
+    `device` (cuda unless "cpu" is asked for).  k: None or (B,) penalty
+    scales (`gls_whole`)."""
     Ds = np.ascontiguousarray(Ds, dtype=np.float32)
     dev = _device(device)
     D_t = torch.as_tensor(Ds, device=dev)
     G_t = torch.as_tensor(np.ascontiguousarray(guide_stack, dtype=np.float32), device=dev)
     T_t = torch.as_tensor(np.ascontiguousarray(init_tours, dtype=np.int32), device=dev)
+    k_t = None if k is None else _on(k, dev, torch.float32)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.time()
     out = gls_whole(D_t, G_t, T_t, n_iters=n_iters,
-                    perturbation_moves=perturbation_moves)
+                    perturbation_moves=perturbation_moves, k=k_t)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.time()

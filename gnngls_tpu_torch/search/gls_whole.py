@@ -50,20 +50,27 @@ def _check_inputs(Ds, guides, init_tours, n_iters, perturbation_moves):
 
 
 def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
-              *, n_iters: int, perturbation_moves: int = 20,
+              *, n_iters: int, perturbation_moves: int = 20, k=None,
               layout: str = "auto") -> GLSOutput:
     """Ds (B, n, n) f32, guides (B, G, n, n) or (B, n, n) f32, init_tours
-    (B, n+1) int32 -> GLSOutput.  `layout` ("auto", "shared", "global")
-    picks the kernel's state layout; the plain twin ignores it."""
+    (B, n+1) int32 -> GLSOutput.  k: None (each instance's penalty scale is
+    0.1 * its initial tour's cost on Ds / n) or a (B,) f32 tensor of scales
+    on the same device.  `layout` ("auto", "shared", "global") picks the
+    kernel's state layout; the plain twin ignores it."""
     if guides.dim() == 3:
         guides = guides[:, None]
     _check_inputs(Ds, guides, init_tours, n_iters, perturbation_moves)
     if layout not in ("auto", *LAYOUTS):
         raise ValueError(f"gls_whole: unknown layout {layout!r}")
     tensors = (Ds, guides, init_tours)
+    if k is not None:
+        if k.dtype != torch.float32 or k.shape != (Ds.shape[0],):
+            raise ValueError(f"gls_whole: k must be a ({Ds.shape[0]},) float32 tensor, got "
+                             f"{k.dtype} {tuple(k.shape)}")
+        tensors += (k,)
     if all(t.device.type == "cpu" for t in tensors):
         return gls_fixed_plain(Ds, guides, init_tours, n_iters=n_iters,
-                               perturbation_moves=perturbation_moves)
+                               perturbation_moves=perturbation_moves, k=k)
     dev = Ds.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("gls_whole: all tensors must be on one CUDA device, got "
@@ -90,7 +97,8 @@ def gls_whole(Ds: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor,
     if layout == "global":  # zeroed for each launch: the search starts from P = 0
         workspace = torch.zeros((B, 2, n, n), dtype=f32, device=dev)
     err = kernels.library().gls_whole_launch(
-        Ds.data_ptr(), guides.data_ptr(), init_tours.data_ptr(), B, n,
+        Ds.data_ptr(), guides.data_ptr(), init_tours.data_ptr(),
+        None if k is None else k.data_ptr(), B, n,
         guides.shape[1], n_iters, perturbation_moves, LAYOUTS[layout],
         None if workspace is None else workspace.data_ptr(),
         *[t.data_ptr() for t in out], dev.index, kernels.stream_of(Ds))

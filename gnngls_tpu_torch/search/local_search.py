@@ -168,6 +168,11 @@ def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improv
     return t, cost
 
 
+def penalty_scale(cost: torch.Tensor, n: int) -> torch.Tensor:
+    """k = 0.1 * cost / n in f32, rounded as the kernel rounds it."""
+    return (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
+
+
 def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[int] = 1024,
              max_ls_iters: int = 0, k=None, first_improvement: bool = False) -> GLSState:
     """The initial local search on true weights.  D (B, n, n) f32,
@@ -179,7 +184,7 @@ def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[i
     t = init_tours.to(device=D.device, dtype=torch.long)
     cost = mv.tour_costs(D, t)
     if k is None:
-        k = (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
+        k = penalty_scale(cost, n)
     else:
         k = torch.as_tensor(k, dtype=torch.float32, device=D.device).expand(B).clone()
     trace = make_trace(B, trace_cap, D.device)
@@ -229,14 +234,14 @@ def guided_local_search(D: torch.Tensor, guides: torch.Tensor, init_tours: torch
 
 def gls_fixed_plain(Ds: torch.Tensor, guides: torch.Tensor,
                     init_tours: torch.Tensor, *, n_iters: int,
-                    perturbation_moves: int = 20) -> GLSOutput:
+                    perturbation_moves: int = 20, k=None) -> GLSOutput:
     """The kernel's twin: best-improvement, per-iteration traces.  Ds
     (B, n, n) f32, guides (B, G, n, n) or (B, n, n) f32, init_tours (B, n+1)
-    int; runs on the tensors' device."""
+    int; k as in `gls_init`; runs on the tensors' device."""
     if guides.dim() == 3:
         guides = guides[:, None]
     B = Ds.shape[0]
-    state = gls_init(Ds, init_tours, trace_cap=None)
+    state = gls_init(Ds, init_tours, trace_cap=None, k=k)
     tr_c = torch.zeros((B, n_iters), dtype=torch.float32, device=Ds.device)
     tr_m = torch.zeros((B, n_iters), dtype=torch.int32, device=Ds.device)
     for it in range(n_iters):

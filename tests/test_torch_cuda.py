@@ -323,6 +323,55 @@ def test_gls_global_layout_matches_plain(cuda, n, B, iters, pm, G):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n,B,iters,pm", [(20, 4, 3, 6), (100, 4, 2, 20), (100, 4, 0, 20),
+                                          (300, 2, 1, 10)])
+def test_gls_kernel_k_input_matches_plain(cuda, n, B, iters, pm):
+    """A (B,) k input (the forced-edge label oracles') against the twin in
+    every layout that takes n, n_iters=0 (empty traces) included; k=None
+    gives the bits of k set to the kernel's own 0.1 * initial cost / n."""
+    from gnngls_tpu_torch.search.local_search import penalty_scale
+    from gnngls_tpu_torch.search.moves import tour_costs
+
+    Dt, Gt, T = _gls_case(n, B, 1, n + 3, cuda)
+    k = torch.as_tensor(np.random.default_rng(n).uniform(0.01, 0.3, B), dtype=torch.float32,
+                        device=cuda)
+    want = gls_fixed_plain(Dt, Gt, T, n_iters=iters, perturbation_moves=pm, k=k)
+    for layout in ("shared", "global") if n <= gls_whole_max_n() else ("global",):
+        got = gls_whole(Dt, Gt, T, n_iters=iters, perturbation_moves=pm, k=k, layout=layout)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), layout
+    k0 = penalty_scale(tour_costs(Dt, T.long()), n)
+    own = gls_whole(Dt, Gt, T, n_iters=iters, perturbation_moves=pm)
+    given = gls_whole(Dt, Gt, T, n_iters=iters, perturbation_moves=pm, k=k0)
+    torch.cuda.synchronize()
+    for a, b in zip(own, given):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("iters", [0, 2])
+def test_warm_label_lanes_match_plain(cuda, iters):
+    """The warm forced-edge oracle at n=100 (shipped tsp100 instance 4 from
+    its shipped tour, every 77th edge, both splices) through K1 on the card
+    and through its twin on the CPU: the same tours and costs."""
+    import pathlib
+
+    from gnngls_tpu_torch.data.solvers import warm_fixed_edge_costs_batch
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    with np.load(root / "data" / "tsp100" / "instances.npz") as z:
+        D = coords_to_distance_matrix(z["coords"][4:5]).astype(np.float64)
+        best = z["opt_tour"][4:5]
+    edges = build_topology(100).edges[::77]
+    before = kernels.launches["gls_whole"]
+    got = warm_fixed_edge_costs_batch(D, edges, best, n_gls_iters=iters, device="cuda")
+    assert kernels.launches["gls_whole"] == before + 1
+    want = warm_fixed_edge_costs_batch(D, edges, best, n_gls_iters=iters, device="cpu")
+    assert got[1].all()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_wrappers_raise_on_bad_cuda_inputs(cuda):
     E = 10
     el = torch.zeros((1, E, 2), device=cuda)

@@ -5,9 +5,9 @@
   a fresh interpreter, against the modules present before the imports).
 * Without a card the entry points raise unless device="cpu" is asked for.
 * Modes not ported yet raise NotImplementedError (the `chunked` and `bf16`
-  GAT routes, training through `sep_fast`, the exact solvers); the
-  evaluation modes ported since run, and train mode runs on the plain
-  routes while the kernel routes, which have no backward, refuse it.
+  GAT routes, training through `sep_fast`); the evaluation modes and exact
+  solvers ported since run, and train mode runs on the plain routes while
+  the kernel routes, which have no backward, refuse it.
 """
 
 import pathlib
@@ -21,6 +21,7 @@ import torch
 from gnngls_tpu_torch import evaluate as tev
 from gnngls_tpu_torch.data import dataset as tds
 from gnngls_tpu_torch.data import generate as tgen
+from gnngls_tpu_torch.data import native_oracle as tnative
 from gnngls_tpu_torch.cli import train as tcli_train
 from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig, gat_conv_for
 from gnngls_tpu_torch.search import batched as tbatched
@@ -108,9 +109,12 @@ def test_unported_modes_raise():
             model(x, gat_impl=impl)
     with pytest.raises(NotImplementedError):
         model(x, gat_impl="sep_fast")
+    # the exact solvers are ported (they raised before the data-generation slice):
+    # gnngls_tpu's rule, Held-Karp up to n=16 (22 with the native oracle), else GLS
     for solver in ("held_karp", "concorde"):
-        with pytest.raises(NotImplementedError):
-            tgen.resolve_solver(30, solver)
+        assert tgen.resolve_solver(30, solver) == solver
+    assert tgen.resolve_solver(16) == "held_karp" and tgen.resolve_solver(23) == "gls"
+    assert tgen.resolve_solver(22) == ("held_karp" if tnative.available() else "gls")
     with pytest.raises(ValueError):
         tev.evaluate(_tiny(), guides=["regret_pred"], n_iters=1, device="cpu")
     # ported: a wall-clock budget, first-improvement, the reference's own inputs

@@ -79,14 +79,16 @@ def test_tour_to_edge_vector_matches_jax():
 
 
 def test_resolve_solver():
+    """gnngls_tpu's rule, now that the exact solvers are ported: GLS past
+    n=22, Held-Karp up to it (the native oracle builds here), a named solver
+    as named; an unknown one is refused where the instances are solved."""
     assert tgen.resolve_solver(30) == tgen.resolve_solver(500, "gls") == "gls"
-    with pytest.raises(NotImplementedError, match="data-generation slice"):
-        tgen.resolve_solver(20)
+    assert tgen.resolve_solver(20) == jgen.resolve_solver(20) == "held_karp"
     for exact in ("held_karp", "concorde"):
-        with pytest.raises(NotImplementedError, match="data-generation slice"):
-            tgen.resolve_solver(30, exact)
-    with pytest.raises(ValueError):
-        tgen.resolve_solver(30, "lkh")
+        assert tgen.resolve_solver(30, exact) == jgen.resolve_solver(30, exact) == exact
+    assert tgen.resolve_solver(30, "lkh") == "lkh"
+    with pytest.raises(ValueError, match="unknown solver"):
+        tgen.solve_instances(np.zeros((1, 30, 2), np.float32), "lkh")
 
 
 def test_oracle_generator_and_from_arrays_match_jax(tmp_path):

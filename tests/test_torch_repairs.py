@@ -65,12 +65,15 @@ def test_unbatched_forward_matches_jax(models, port, jax_impl):
 
 
 def test_resolve_solver_concorde_tier(monkeypatch):
-    monkeypatch.setattr(tgen.shutil, "which",
+    """A concorde binary on PATH takes every n, as in gnngls_tpu (the port's
+    exact solvers are ported, so it no longer raises)."""
+    from gnngls_tpu.data import generate as jgen
+    from gnngls_tpu_torch.data import solvers as tsolvers
+
+    monkeypatch.setattr(tsolvers.shutil, "which",
                         lambda name: "/usr/local/bin/concorde" if name == "concorde" else None)
-    with pytest.raises(NotImplementedError, match="concorde"):
-        tgen.resolve_solver(150, None)
-    with pytest.raises(NotImplementedError, match="concorde"):
-        tgen.resolve_solver(10, None)
+    assert tgen.resolve_solver(150, None) == jgen.resolve_solver(150, None) == "concorde"
+    assert tgen.resolve_solver(10, None) == jgen.resolve_solver(10, None) == "concorde"
     assert tgen.resolve_solver(150, "gls") == "gls"
-    monkeypatch.setattr(tgen.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tsolvers.shutil, "which", lambda name: None)
     assert tgen.resolve_solver(150, None) == "gls"

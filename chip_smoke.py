@@ -125,6 +125,37 @@ and prints no result line:
      with its scalers.json and one predict_regret batch through K2; (d) the
      native C++ oracle built on the card's host, against the numpy Held-Karp
      at n=12.
+ 17. the last slice (no new kernel; every number beside the card's name and
+     power limit): (a) the `chunked` route: predict_regret(gat_impl=
+     "chunked", batch 16) on phase 7's first 16 n=500 instances (city chunks
+     of 10), within 5e-4 of phase 7's K3 predictions with Spearman at least
+     0.9999, the search as phase 7's (n_iters 40, pm 20, K1's global layout)
+     with valid tours and its mean gap beside phase 7's, edges/s, one
+     forward's time and peak memory; then the n=200 JAX fixture through it,
+     within 5e-4; (b) the `bf16` route over the 500 tsp100 test instances at
+     batch 64: Spearman and max abs difference against phase 3's K2
+     predictions, instances 0-1 within 2e-3 of the scale of the same route
+     on the CPU, the search (n_iters 100, pm 20) and its gap beside phase 3's,
+     edges/s, peak memory; (c) one `chunked` train step on the card against
+     the CPU at phase 15a's shape and bars; the bf16 routes refuse train mode
+     and their GATConv's gradient (x and the parameters) on the card equals
+     the CPU's in float64 within 1e-4 of each leaf's scale; (d)
+     best_probabilistic_nearest_neighbour (64 samples) on tsp100 instance 0
+     under phase 3's regret, Gumbel noise from a seeded CPU generator: the
+     card's tour equals the CPU's and is valid; (e) device_trace around one
+     predict_regret batch (K2) and one run_fixed_kernel call (K1) with
+     annotate and step_annotation regions: the exported Chrome trace holds
+     the regions and CUDA kernels named gat_group and gls_whole; (f) a NCCL
+     process group of one rank (multihost.initialize at a free local port),
+     make_mesh(("data", "model")); forward_ring, forward_tp (after
+     shard_params_tp) on tsp100 instances 0-3 at full width and
+     gat_conv_sharded on the checkpoint's layer-0 input, each within 5e-4 of
+     the `fast` route on the card; (g) make_sharded_gls (n_iters 100, pm 20)
+     on instances 0-63 with phase 3's guide, launch counts reset just before
+     and read just after: tours, costs and moves identical to
+     run_fixed_kernel's (phase 14b's call); one make_dp_train_step step equal
+     to train_step on the same batch in float64 (within 1e-6 of each leaf);
+     then destroy_process_group.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -181,6 +212,11 @@ LABEL_FIXTURE = "gnngls_tpu_torch/testdata/jax_tsp100_labels_0to7.npz"
 # packages' f32 cost sums differ in order, so of two tied tours they may keep either
 # (tests/test_torch_labels.py).
 TIE_ULPS = 4
+# Phase 17: the bf16 route on the card against the CPU (tests/test_torch_gat_sep.py's
+# BF16_VS_F32: eight layers carry the card's f32 noise through bf16 roundings); the
+# bf16 routes' GATConv gradient, card against CPU in float64 (the CPU test's bar
+# against JAX); the n=500 chunked predictions' batch; the construction's samples.
+BF16_CARD_TOL, BF16_GRAD_TOL, BATCH_CHUNKED, N_CHUNKED, PNN_SAMPLES = 2e-3, 1e-4, 16, 16, 64
 
 
 class SmokeFailure(Exception):
@@ -518,14 +554,9 @@ def layer0_embedding(model, coords, dev):
     import numpy as np
     import torch
 
-    from gnngls_tpu_torch.core.scaler import load_scalers
-    from gnngls_tpu_torch.data.dataset import TSPDataset
-
     B, n, _ = coords.shape
-    E = n * (n - 1) // 2
-    d = {"coords": coords, "regret": np.zeros((B, E), np.float32),
-         "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
-    ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    ds = generated_dataset({"coords": coords, "opt_cost": np.ones(B),
+                         "in_solution": np.zeros((B, n * (n - 1) // 2), bool)})
     with torch.no_grad():
         return model.embed(torch.as_tensor(ds.get_scaled_batch(np.arange(B))["features"],
                                            device=dev))
@@ -639,12 +670,23 @@ def phase6_gls_global(dev):
     log("phase 6: K1's global layout matches the shared layout and the plain twin")
 
 
+def generated_dataset(data, k=None):
+    """Generated instances (the first k) as a dataset with the tsp100 scalers
+    and zero regret labels."""
+    import numpy as np
+
+    from gnngls_tpu_torch.core.scaler import load_scalers
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+
+    d = {key: np.asarray(v)[:k] if np.ndim(v) else v for key, v in data.items()}
+    d["regret"] = np.zeros_like(np.asarray(d["in_solution"], np.float32))
+    return TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+
+
 def phase7_tsp500(model, dev):
     import numpy as np
 
     from gnngls_tpu_torch import kernels
-    from gnngls_tpu_torch.core.scaler import load_scalers
-    from gnngls_tpu_torch.data.dataset import TSPDataset
     from gnngls_tpu_torch.data.generate import coords_to_distance_matrix, generate_instances
     from gnngls_tpu_torch.evaluate import evaluate
     from gnngls_tpu_torch.utils import is_valid_tour
@@ -654,9 +696,7 @@ def phase7_tsp500(model, dev):
     data = generate_instances(N_INST500, N500, seed=SEED500, solver="gls",
                               opt_iters=ORACLE_ITERS, device=dev)
     oracle_s = time.time() - t
-    d = dict(data)
-    d["regret"] = np.zeros_like(np.asarray(d["in_solution"], np.float32))
-    ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    ds = generated_dataset(data)
     t = time.time()
     out = evaluate(ds, model=model, guides=["regret_pred"], n_iters=N_ITERS500,
                    perturbation_moves=20, batch_size=BATCH500, device=dev)
@@ -696,8 +736,6 @@ def phase8_fixture200(model, dev):
     import torch
 
     from gnngls_tpu_torch.core.graph import edge_vector_to_matrix
-    from gnngls_tpu_torch.core.scaler import load_scalers
-    from gnngls_tpu_torch.data.dataset import TSPDataset
     from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
     from gnngls_tpu_torch.evaluate import evaluate
     from gnngls_tpu_torch.search import batched
@@ -706,10 +744,8 @@ def phase8_fixture200(model, dev):
     B, n, _ = fx["coords"].shape
     coords = np.random.default_rng(SEED500).random((B, n, 2)).astype(np.float32)
     require(np.array_equal(coords, fx["coords"]), "n=200 fixture: other coordinates")
-    E = n * (n - 1) // 2
-    d = {"coords": coords, "regret": np.zeros((B, E), np.float32),
-         "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
-    ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    ds = generated_dataset({"coords": coords, "opt_cost": np.ones(B),
+                         "in_solution": np.zeros((B, n * (n - 1) // 2), bool)})
     n_iters, pm = int(fx["n_iters"]), int(fx["perturbation_moves"])
     out = evaluate(ds, model=model, guides=["regret_pred"], n_iters=n_iters,
                    perturbation_moves=pm, batch_size=B, device=dev)
@@ -1076,19 +1112,24 @@ def phase12_sep(model, data, dev):
     return worst, timed, f"B={B} n={N500} H={H} F={F}", (fx_ms, fx_plain, fx_bound, fx_shape)
 
 
-def phase13_sep_path(model, data, out500, dev):
-    import numpy as np
+def rank_agreement(preds, ref, dev):
+    """(max abs difference, Spearman rank correlation) of two prediction arrays."""
     import torch
 
+    a, b = (torch.as_tensor(v, device=dev).reshape(-1) for v in (preds, ref))
+    diff = float((a.double() - b.double()).abs().max())
+    ranks = [torch.argsort(torch.argsort(v, stable=True), stable=True).double() for v in (a, b)]
+    return diff, float(torch.corrcoef(torch.stack(ranks))[0, 1])
+
+
+def phase13_sep_path(model, data, out500, dev):
+    import numpy as np
+
     from gnngls_tpu_torch import kernels
-    from gnngls_tpu_torch.core.scaler import load_scalers
-    from gnngls_tpu_torch.data.dataset import TSPDataset
     from gnngls_tpu_torch.evaluate import predict_regret, search_on_predictions
     from gnngls_tpu_torch.utils import is_valid_tour
 
-    d = dict(data)
-    d["regret"] = np.zeros_like(np.asarray(d["in_solution"], np.float32))
-    ds = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    ds = generated_dataset(data)
     kernels.reset_launch_counts()
     t = time.time()
     preds = predict_regret(model, ds, batch_size=BATCH_SEP, device=dev,
@@ -1097,12 +1138,7 @@ def phase13_sep_path(model, data, out500, dev):
     counts = dict(kernels.launches)
     want = {"gat_sep": model.cfg.depth * -(-len(ds) // BATCH_SEP)}
     require(counts == want, f"pallas_sep_fast path launches {counts}, expected {want}")
-    k3 = predictions(out500, N500)
-    a, b = (torch.as_tensor(v, device=dev).reshape(-1) for v in (preds, k3))
-    diff = float((a.double() - b.double()).abs().max())
-    ranks = [torch.argsort(torch.argsort(v, stable=True), stable=True).double() for v in (a, b)]
-    rho = float(torch.corrcoef(torch.stack(ranks))[0, 1])
-    del a, b, ranks
+    diff, rho = rank_agreement(preds, predictions(out500, N500), dev)
     log(f"phase 13: pallas_sep_fast predictions on {len(ds)} n={N500} instances at batch "
         f"{BATCH_SEP} in {infer_s:.3f} s ({preds.size / infer_s:.4g} edges/s); launches "
         f"{counts}; vs phase 7's K3 predictions: max abs difference {diff:.3e}, Spearman "
@@ -1123,10 +1159,8 @@ def phase13_sep_path(model, data, out500, dev):
 
     fx = np.load(ROOT / "gnngls_tpu_torch/testdata/jax_tsp200_seed3.npz")
     B, n, _ = fx["coords"].shape
-    E = n * (n - 1) // 2
-    d = {"coords": fx["coords"], "regret": np.zeros((B, E), np.float32),
-         "in_solution": np.zeros((B, E), bool), "opt_cost": np.ones(B)}
-    ds200 = TSPDataset.from_arrays(d, scalers=load_scalers(ROOT / "models/tsp100/scalers.json"))
+    ds200 = generated_dataset({"coords": fx["coords"], "opt_cost": np.ones(B),
+                            "in_solution": np.zeros((B, n * (n - 1) // 2), bool)})
     kernels.reset_launch_counts()
     p200 = predict_regret(model, ds200, batch_size=B, device=dev, gat_impl="pallas_sep")
     counts200 = dict(kernels.launches)
@@ -1325,7 +1359,7 @@ def phase14f_pt_checkpoint(model, ds, dev):
         f"0-{BATCH - 1} bit for bit as the npz checkpoint")
 
 
-def train_step_on(model, dev, dtype, x, y):
+def train_step_on(model, dev, dtype, x, y, gat_impl="fast"):
     """One train step of a copy of `model` on `dev` in `dtype`: (loss, the
     gradient of every leaf, the BatchNorm running statistics), in float64
     on the host."""
@@ -1337,11 +1371,31 @@ def train_step_on(model, dev, dtype, x, y):
 
     m = copy.deepcopy(model).to(device=dev, dtype=dtype)
     loss = train_step(m, make_optimizer(m), torch.as_tensor(x, dtype=dtype, device=dev),
-                      torch.as_tensor(y, dtype=dtype, device=dev))
+                      torch.as_tensor(y, dtype=dtype, device=dev), gat_impl=gat_impl)
     grads = {k: p.grad.double().cpu() for k, p in m.named_parameters()}
     stats = {k: t.double().cpu() for k, t in m.state_dict().items()
              if k.endswith((".mean", ".var"))}
     return float(loss), grads, stats
+
+
+def hold_train_step(got, want, tol, what):
+    """Two train_step_on results: the loss within TRAIN_LOSS_RTOL, each leaf
+    within tol of its largest value, or of the largest over all leaves where
+    its own is below VANISHING of that.  Returns (loss rel, worst of each
+    kind over its bar times tol)."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    require(math.isfinite(got[0]) and rel <= TRAIN_LOSS_RTOL,
+            f"{what}: loss {got[0]} vs {want[0]}")
+    worst = {}
+    for kind, a, b in (("grad", got[1], want[1]), ("bn", got[2], want[2])):
+        top = max(float(v.abs().max()) for v in b.values())
+        for key in b:
+            scale = float(b[key].abs().max())
+            bar = tol * (scale if scale >= VANISHING * top else top)
+            err = float((a[key] - b[key]).abs().max())
+            require(err <= bar, f"{what}: {kind} {key} differs by {err:.3e} > {bar:.3e}")
+            worst[kind] = max(worst.get(kind, 0.0), err / (bar / tol))
+    return rel, worst
 
 
 def phase15a_train_step(dev):
@@ -1360,19 +1414,7 @@ def phase15a_train_step(dev):
     model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4), torch.Generator().manual_seed(15))
     for dtype, tol in ((torch.float64, TRAIN_TOL64), (torch.float32, TRAIN_TOL32)):
         got, want = train_step_on(model, dev, dtype, x, y), train_step_on(model, "cpu", dtype, x, y)
-        rel = abs(got[0] - want[0]) / abs(want[0])
-        require(math.isfinite(got[0]) and rel <= TRAIN_LOSS_RTOL,
-                f"train step {dtype}: loss {got[0]} vs the CPU's {want[0]}")
-        worst = {}
-        for what, a, b in (("grad", got[1], want[1]), ("bn", got[2], want[2])):
-            top = max(float(v.abs().max()) for v in b.values())
-            for key in b:
-                scale = float(b[key].abs().max())
-                bar = tol * (scale if scale >= VANISHING * top else top)
-                err = float((a[key] - b[key]).abs().max())
-                require(err <= bar, f"train step {dtype}: {what} {key} differs by {err:.3e} "
-                        f"> {bar:.3e}")
-                worst[what] = max(worst.get(what, 0.0), err / (bar / tol))
+        rel, worst = hold_train_step(got, want, tol, f"train step {dtype}")
         log(f"  train step {str(dtype)[6:]}: card vs CPU loss rel {rel:.3e}, gradients within "
             f"{worst['grad']:.3e} and running statistics within {worst['bn']:.3e} of each "
             f"leaf's largest value (bar {tol})")
@@ -1751,6 +1793,327 @@ def phase16d_native():
         f"at n={n} equal numpy's (optimum {cost:.6f})")
 
 
+def timed_predictions(model, ds, dev, batch, gat_impl):
+    """(predictions, seconds, peak device bytes) of predict_regret."""
+    import torch
+
+    from gnngls_tpu_torch.evaluate import predict_regret
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.time()
+    preds = predict_regret(model, ds, batch_size=batch, device=dev, gat_impl=gat_impl)
+    secs = time.time() - t
+    return preds, secs, torch.cuda.max_memory_allocated(dev)
+
+
+def searched_gap(preds, coords, opt_cost, n_iters, dev, what):
+    """The search on the predictions (nearest neighbour on the regret, K1 with
+    it as the only guide): valid tours, and the mean gap in percent."""
+    import numpy as np
+
+    from gnngls_tpu_torch.evaluate import search_on_predictions
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    res, search_s = search_on_predictions(preds, coords, n_iters=n_iters,
+                                           perturbation_moves=20, device=dev)
+    n = coords.shape[1]
+    for i in range(len(coords)):
+        require(is_valid_tour(n, res.best_tours[i]), f"{what} instance {i}: invalid tour")
+    gaps = (res.best_costs / opt_cost - 1.0) * 100.0
+    require(bool(np.isfinite(gaps).all()), f"{what}: gaps are not finite")
+    return float(gaps.mean()), search_s
+
+
+def phase17a_chunked(model, data, out500, dev, card):
+    import numpy as np
+
+    from gnngls_tpu_torch.evaluate import predict_regret
+
+    k = N_CHUNKED
+    ds = generated_dataset(data, k)
+    predict_regret(model, generated_dataset(data, 1), batch_size=1, device=dev,
+                   gat_impl="chunked")  # warm-up
+    preds, secs, peak = timed_predictions(model, ds, dev, BATCH_CHUNKED, "chunked")
+    diff, rho = rank_agreement(preds, predictions(out500, N500)[:k], dev)
+    log(f"phase 17a ({card}): chunked predictions on {k} n={N500} instances at batch "
+        f"{BATCH_CHUNKED} (city chunks of 10): one forward {secs:.3f} s, "
+        f"{preds.size / secs:.4g} edges/s, peak device memory {peak} bytes; vs phase 7's K3 "
+        f"predictions: max abs difference {diff:.3e}, Spearman {rho:.7f}")
+    require(bool(np.isfinite(preds).all()), "chunked predictions are not finite")
+    require(diff <= PRED_TOL, f"chunked predictions differ from K3's by {diff:.3e} > {PRED_TOL}")
+    require(rho >= SPEARMAN_MIN, f"chunked: Spearman {rho:.6f} against K3's < {SPEARMAN_MIN}")
+    gap, search_s = searched_gap(preds, ds.coords, np.asarray(data["opt_cost"])[:k],
+                                 N_ITERS500, dev, "chunked path")
+    log(f"  search (n_iters {N_ITERS500}, pm 20, K1's global layout) {search_s:.3f} s: mean "
+        f"gap {gap:.4f}% vs the oracle (phase 7 on these {k}: "
+        f"{float(out500['gaps'][:k].mean()):.4f}%)")
+
+    fx = np.load(ROOT / "gnngls_tpu_torch/testdata/jax_tsp200_seed3.npz")
+    B, n, _ = fx["coords"].shape
+    ds200 = generated_dataset({"coords": fx["coords"], "opt_cost": np.ones(B),
+                            "in_solution": np.zeros((B, n * (n - 1) // 2), bool)})
+    p200 = predict_regret(model, ds200, batch_size=B, device=dev, gat_impl="chunked")
+    err = float(np.abs(p200 - fx["pred"]).max())
+    log(f"  chunked on the n={n} JAX fixture: predictions max abs {err:.3e} (tol {PRED_TOL})")
+    require(err <= PRED_TOL, f"chunked predictions at n={n} differ from JAX by {err:.3e}")
+
+
+def phase17b_bf16(model, ds, k2_preds, gap3, dev, card):
+    import copy
+
+    import numpy as np
+    import torch
+
+    preds, secs, peak = timed_predictions(model, ds, dev, BATCH, "bf16")
+    diff, rho = rank_agreement(preds, k2_preds, dev)
+    log(f"phase 17b ({card}): bf16 predictions on {len(ds)} tsp100 instances at batch {BATCH} "
+        f"in {secs:.3f} s ({preds.size / secs:.4g} edges/s), peak device memory {peak} "
+        f"bytes; vs phase 3's K2 predictions: max abs difference {diff:.3e}, Spearman "
+        f"{rho:.7f}")
+    require(bool(np.isfinite(preds).all()), "bf16 predictions are not finite")
+    x = ds.get_scaled_batch([0, 1])["features"]
+    with torch.no_grad():
+        got = model(torch.as_tensor(x, device=dev), gat_impl="bf16").cpu().numpy()
+        cpu = copy.deepcopy(model).cpu()
+        want = cpu(torch.as_tensor(x), gat_impl="bf16").numpy()
+    err = float(np.abs(got - want).max())
+    bar = BF16_CARD_TOL * max(1.0, float(np.abs(want).max()))
+    log(f"  instances 0-1, bf16 route on the card vs the CPU: max abs {err:.3e} (bar {bar:.3e})")
+    require(err <= bar, f"bf16 route: card vs CPU {err:.3e} > {bar:.3e}")
+    gap, search_s = searched_gap(preds, ds.coords, ds.opt_cost, N_ITERS, dev, "bf16 path")
+    log(f"  search (n_iters {N_ITERS}, pm {PM}) {search_s:.3f} s: mean gap {gap:.4f}% (phase "
+        f"3's through K2: {gap3:.4f}%)")
+
+
+def conv_grads_on(route, dev, dtype, arrays, x, ct, n, H):
+    """The gradient of sum(GATConv(x) * ct) over (fc_w, attn_l, attn_r, x)."""
+    import torch
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.models.regret_gat import gat_conv_for
+    from gnngls_tpu_torch.ops.gat import GATParams
+
+    leaves = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=True) for a in (*arrays, x)]
+    out = gat_conv_for(route)(GATParams(*leaves[:3]), build_topology(n), leaves[3], H)
+    (out * torch.as_tensor(ct, dtype=dtype, device=dev)).sum().backward()
+    return [t.grad.double().cpu() for t in leaves]
+
+
+def phase17c_train_routes(dev, card):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.models.regret_gat import BF16_ROUTES, RegretGNNConfig, init_params
+
+    n, B = 20, 8
+    rng = np.random.default_rng(15)
+    E = n * (n - 1) // 2
+    x = rng.random((B, E, 1)).astype(np.float32)
+    y = rng.random((B, E, 1)).astype(np.float32)
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4),
+                        torch.Generator().manual_seed(15))
+    for dtype, tol in ((torch.float64, TRAIN_TOL64), (torch.float32, TRAIN_TOL32)):
+        got = train_step_on(model, dev, dtype, x, y, gat_impl="chunked")
+        want = train_step_on(model, "cpu", dtype, x, y, gat_impl="chunked")
+        rel, worst = hold_train_step(got, want, tol, f"chunked train step {dtype}")
+        log(f"  chunked train step {str(dtype)[6:]}: card vs CPU loss rel {rel:.3e}, gradients "
+            f"within {worst['grad']:.3e} and running statistics within {worst['bn']:.3e} of "
+            f"each leaf's largest value (bar {tol})")
+    m = copy.deepcopy(model).to(dev).train()
+    for route in BF16_ROUTES:
+        try:
+            m(torch.as_tensor(x, device=dev), gat_impl=route)
+        except NotImplementedError:
+            pass
+        else:
+            raise SmokeFailure(f"{route} trained: its gradients are not held to JAX's")
+    H, F = 4, 8
+    arrays = [rng.normal(size=s) * 0.5 for s in ((H * F, H * F), (H, F), (H, F))]
+    xc, ct = rng.normal(size=(B, E, H * F)), rng.normal(size=(B, E, H * F))
+    for route in BF16_ROUTES:
+        got = conv_grads_on(route, dev, torch.float64, arrays, xc, ct, n, H)
+        want = conv_grads_on(route, "cpu", torch.float64, arrays, xc, ct, n, H)
+        worst = 0.0
+        for a, b, name in zip(got, want, ("fc_w", "attn_l", "attn_r", "x")):
+            err = float((a - b).abs().max()) / float(b.abs().max())
+            require(err <= BF16_GRAD_TOL, f"{route} GATConv gradient {name}: card vs CPU "
+                    f"{err:.3e} > {BF16_GRAD_TOL} of its scale")
+            worst = max(worst, err)
+        log(f"  {route}: refuses train mode; its GATConv gradient in float64 on the card "
+            f"within {worst:.3e} of each leaf's scale of the CPU's (bar {BF16_GRAD_TOL})")
+    log(f"phase 17c ({card}): chunked trains as on the CPU; the bf16 routes' gradients "
+        "hold on the card")
+
+
+def phase17d_construction(ds, k2_preds, dev, card):
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.core.graph import edge_vector_to_matrix
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.construct import (best_probabilistic_nearest_neighbour,
+                                                   gumbel_noise)
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    n = ds.n_nodes
+    W = coords_to_distance_matrix(ds.coords[:1])[0].astype(np.float32)
+    R = edge_vector_to_matrix(k2_preds[0].astype(np.float32), n)
+    noise = gumbel_noise((PNN_SAMPLES, n - 1, n), torch.Generator().manual_seed(17))
+    tours = []
+    for d in (dev, torch.device("cpu")):
+        tours.append(best_probabilistic_nearest_neighbour(
+            torch.as_tensor(W, device=d), 0, PNN_SAMPLES, guide=torch.as_tensor(R, device=d),
+            noise=noise).cpu())
+    require(torch.equal(tours[0], tours[1]), "probabilistic nearest neighbour: the card's "
+            "tour differs from the CPU's on the same noise")
+    t = tours[0].numpy()
+    require(is_valid_tour(n, t), "probabilistic nearest neighbour: invalid tour")
+    cost = float(W[t[:-1], t[1:]].astype(np.float64).sum())
+    log(f"phase 17d ({card}): best of {PNN_SAMPLES} probabilistic nearest-neighbour tours on "
+        f"tsp100 instance 0 under the regret: the card's equals the CPU's, cost {cost:.4f} "
+        f"(gap {(cost / ds.opt_cost[0] - 1) * 100:.3f}%)")
+
+
+def phase17e_profiling(model, ds, guide64, init64, dev, card):
+    import numpy as np
+
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.search.batched import run_fixed_kernel
+    from gnngls_tpu_torch.utils.profiling import annotate, device_trace, step_annotation
+
+    k = len(guide64)
+    D = coords_to_distance_matrix(ds.coords[:k]).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            with annotate("smoke_inference"):
+                predict_regret(model, head(ds, BATCH), batch_size=BATCH, device=dev)
+            with step_annotation("smoke_search", 0):
+                run_fixed_kernel(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM,
+                                 device=dev)
+        traces = list(pathlib.Path(tmp).glob("*.pt.trace.json"))
+        require(len(traces) == 1, f"device_trace wrote {traces}")
+        size = traces[0].stat().st_size
+        events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {key: sum(key in e["name"] for e in kernels) for key in ("gat_group", "gls_whole")}
+    log(f"phase 17e ({card}): device_trace wrote {size} bytes, {len(events)} events, "
+        f"{len(kernels)} CUDA kernels; regions present: "
+        f"{sorted(r for r in ('smoke_inference', 'smoke_search#0') if r in names)}; kernel "
+        f"events by name {found}")
+    require({"smoke_inference", "smoke_search#0"} <= names, "annotated regions missing")
+    require(all(found.values()), f"the trace lacks a kernel: {found}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase17f_multi_device(model, ds, dev, card):
+    import torch
+    import torch.distributed as dist
+
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.models.regret_gat import forward_ring, forward_tp, shard_params_tp
+    from gnngls_tpu_torch.ops import gat_ring
+    from gnngls_tpu_torch.ops.gat import gat_conv
+    from gnngls_tpu_torch.ops.gat_sharded import gat_conv_sharded
+    from gnngls_tpu_torch.parallel import mesh as pm
+    from gnngls_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=f"localhost:{free_port()}", num_processes=1,
+                         process_id=0)
+    require(dist.get_backend() == "nccl", f"process group backend {dist.get_backend()}")
+    mesh = pm.make_mesh(axes=("data", "model"))
+    require((mesh["data"].size(), mesh["model"].size()) == (1, 1), f"mesh {mesh}")
+    n = ds.n_nodes
+    x = torch.as_tensor(ds.get_scaled_batch(list(range(4)))["features"], device=dev)
+    model = model.eval()
+    with torch.no_grad():
+        taps = []
+        want = model(x, taps=taps, gat_impl="fast")
+        outs = {"forward_ring": forward_ring(model, gat_ring.edge_sharding(
+                    gat_ring.ring_pad(x, 1), mesh), n, mesh=mesh),
+                "forward_tp": forward_tp(shard_params_tp(model, mesh), x, mesh=mesh)}
+        layer0, topo = model.layers[0].gat.params(), build_topology(n)
+        outs["gat_conv_sharded"] = gat_conv_sharded(layer0, topo, taps[0], 8, mesh)
+        wants = {"forward_ring": want, "forward_tp": want,
+                 "gat_conv_sharded": gat_conv(layer0, topo, taps[0], 8)}
+    for name, got in outs.items():
+        err = float((got - wants[name]).abs().max())
+        log(f"  {name} at world size 1 (NCCL), tsp100 instances 0-3: max abs {err:.3e} "
+            f"against the fast route (tol {PRED_TOL})")
+        require(bool(torch.isfinite(got).all()) and err <= PRED_TOL,
+                f"{name}: {err:.3e} from the fast route")
+    log(f"phase 17f ({card}): ring, tensor-parallel and city-sharded forwards hold")
+    return mesh
+
+
+def phase17g_sharded(ds, guide64, init64, mesh, dev, card):
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, init_params
+    from gnngls_tpu_torch.parallel.eval_shard import make_sharded_gls
+    from gnngls_tpu_torch.parallel.train_dp import make_dp_train_step
+    from gnngls_tpu_torch.search.batched import run_fixed_kernel
+    from gnngls_tpu_torch.train.step import make_optimizer
+
+    k = len(guide64)
+    D = coords_to_distance_matrix(ds.coords[:k]).astype(np.float32)
+    run = make_sharded_gls(mesh, n_iters=N_ITERS, perturbation_moves=PM)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t = time.time()
+    tours, costs, moves = run(D, guide64, init64)
+    wall = time.time() - t
+    counts = dict(kernels.launches)
+    ref = run_fixed_kernel(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM,
+                           device=dev)
+    require(counts == {"gls_whole": 1}, f"make_sharded_gls launches {counts}")
+    require(np.array_equal(tours, ref.best_tours), "make_sharded_gls: tours differ from K1's")
+    require(np.array_equal(costs, np.float32(ref.best_costs)), "make_sharded_gls: costs differ")
+    require(np.array_equal(moves, ref.chunk_moves[:, -1]), "make_sharded_gls: moves differ")
+    log(f"phase 17g ({card}): make_sharded_gls on instances 0-{k - 1} (n_iters {N_ITERS}, pm "
+        f"{PM}) in {wall:.3f} s (host clock, the all_gather included); launches {counts}; "
+        f"tours, costs and moves identical to run_fixed_kernel's ({int(moves.sum())} moves)")
+
+    n, B = 20, 8
+    rng = np.random.default_rng(17)
+    x = rng.random((B, n * (n - 1) // 2, 1))
+    y = rng.random((B, n * (n - 1) // 2, 1))
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4),
+                        torch.Generator().manual_seed(17)).to(device=dev, dtype=torch.float64)
+    dp_model = copy.deepcopy(model)
+    step, _ = make_dp_train_step(dp_model, make_optimizer(dp_model), mesh)
+    xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+    dp_loss = float(step(xt, yt))
+    want = train_step_on(model, dev, torch.float64, x, y)
+    got = (dp_loss, {k: p.grad.double().cpu() for k, p in dp_model.named_parameters()},
+           {k: t.double().cpu() for k, t in dp_model.state_dict().items()
+            if k.endswith((".mean", ".var"))})
+    rel, worst = hold_train_step(got, want, TRAIN_TOL64, "data-parallel train step")
+    log(f"  make_dp_train_step at world size 1 (float64) vs train_step: loss rel {rel:.3e}, "
+        f"gradients within {worst['grad']:.3e}, running statistics within {worst['bn']:.3e} "
+        f"(bar {TRAIN_TOL64})")
+    dist.destroy_process_group()
+    log("phase 17g: process group destroyed")
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1793,6 +2156,7 @@ def main(argv=None) -> int:
         log("phase 4: the tsp100 path's kernels timed")
         k2_preds = predictions(out, ds.n_nodes)
         guide64, init64 = out["guide_stack"][:BATCH], out["init_tours"][:BATCH]
+        gap3 = float(out["gaps"].mean())
         del out
         k3_err = phase5_gat_chunked(model, dev)
         phase6_gls_global(dev)
@@ -1849,9 +2213,17 @@ def main(argv=None) -> int:
                         reduced_matrices_ms=build_ms))
         phase16c_clis(dev, model)
         phase16d_native()
+        log(f"phase 16: done on {card}")
+        phase17a_chunked(model, data, out500, dev, card)
+        phase17b_bf16(model, ds, k2_preds, gap3, dev, card)
+        phase17c_train_routes(dev, card)
+        phase17d_construction(ds, k2_preds, dev, card)
+        phase17e_profiling(model, ds, guide64, init64, dev, card)
+        mesh = phase17f_multi_device(model, ds, dev, card)
+        phase17g_sharded(ds, guide64, init64, mesh, dev, card)
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 16: done on {card}")
+        log(f"phase 17: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,19 +15,27 @@ lives in shared memory up to n=138 and in global memory up to n=1024.
 Subpackages:
   core     static K_n line-graph topology, feature scalers
   data     instance generation with the GLS oracle, npz datasets with split
-           files
-  ops      linear, batch norm, GAT (plain paths and the group kernels)
-  models   the edge-regret model (nn.Module), weight conversion, reference
-           .pt checkpoints
-  search   move semantics, nearest neighbour, the whole-GLS kernel and twin,
-           the per-move engine and the fixed-budget and wall-clock drivers
-  train    the checkpoint reader
-  cli      the reference-compatible test entry point
+           files, the exact solvers and the regret labels
+  ops      linear, batch norm, GAT (plain routes, chunked and bf16, and the
+           group kernels), the city-sharded and ring GAT, the
+           tensor-parallel FFN
+  models   the edge-regret model (nn.Module; ring and tensor-parallel
+           forwards), weight conversion, reference .pt checkpoints
+  search   move semantics, construction (nearest neighbour, probabilistic,
+           insertion), the whole-GLS kernel and twin, the per-move engine
+           and the fixed-budget and wall-clock runs
+  train    steps, the loop, checkpoints
+  parallel device meshes over torch.distributed, data-parallel training,
+           instance-sharded search, process bring-up
+  utils    tour helpers; profiling (torch.profiler traces, named regions)
+  cli      the reference-compatible entry points
 
 Modules: evaluate (inference, search, gaps, progress rows, the 10 s
-protocol), stats (paired bootstrap and sign-flip tests), utils, kernels.
+protocol), compat (the reference's API over networkx graphs), stats (paired
+bootstrap and sign-flip tests), kernels.
 
-The package imports torch and numpy only.  Kernels are built with nvcc at
+The package imports torch and numpy only (compat imports networkx and
+matplotlib inside the function that draws).  Kernels are built with nvcc at
 their first CUDA launch (`kernels.py`).
 """
 

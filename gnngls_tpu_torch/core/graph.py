@@ -76,6 +76,14 @@ def _neighbour_lists(n: int) -> np.ndarray:
     return np.concatenate([su, sv], axis=1).astype(np.int32)
 
 
+def weights_to_edge_vector(D: np.ndarray) -> np.ndarray:
+    """The (..., E) per-edge vector of (..., n, n) symmetric matrices, in the
+    canonical edge order."""
+    n = D.shape[-1]
+    us, vs = np.triu_indices(n, k=1)
+    return D[..., us, vs]
+
+
 def edge_vector_to_matrix(x: np.ndarray, n: int, diag=0.0) -> np.ndarray:
     """Scatter an (..., E) per-edge vector to a symmetric (..., n, n) matrix."""
     us, vs = np.triu_indices(n, k=1)

@@ -13,6 +13,10 @@ updates its running statistics; the GATConv must then be a route autograd
 runs through (TRAIN_ROUTES): the kernel routes have no backward, in either
 package.
 
+Multi-device forwards, inference only: `forward_ring` (edge-sharded
+activations, ops/gat_ring.py) and `forward_tp` (FFNs split over the hidden
+units, ops/tp.py, on a copy from `shard_params_tp`).
+
 Numerics: the JAX model runs every matmul in full f32 (HIGHEST).  `forward`
 therefore turns TF32 off for cuBLAS and cuDNN (torch.backends.cuda.matmul.
 allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False) before it runs,
@@ -21,6 +25,7 @@ in either mode.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import List, Optional
@@ -29,7 +34,7 @@ import torch
 from torch import nn
 
 from ..core.graph import build_topology, n_from_edges
-from ..ops.gat import GATParams, gat_conv, gat_conv_naive, init_gat_params
+from ..ops.gat import GATParams, gat_conv, gat_conv_chunked, gat_conv_naive, init_gat_params
 from ..ops.gat_group import gat_conv_group
 from ..ops.gat_group_sep import gat_conv_group_sep
 from ..ops.gat_sep import gat_conv_sep
@@ -38,9 +43,14 @@ from ..ops.norm import BatchNorm
 
 HIDDEN_DIM = 512
 # GATConv routes that train (plain torch under autograd, gradients held to
-# JAX's); JAX's trainer runs "fast".  "sep_fast" trains in JAX too, but the
-# port's bf16 payload gradients are not held to JAX's yet (ROADMAP queue 1).
-TRAIN_ROUTES = ("fast", "naive", "sep")
+# JAX's at 1e-4 of each leaf's scale); JAX's trainer runs "fast".
+TRAIN_ROUTES = ("fast", "naive", "sep", "chunked")
+# The bf16 routes round to bf16 where JAX rounds (their GATConv's gradients
+# equal JAX's given the same inputs), but a rounding is a step: f32 noise of
+# 1e-7 in the input features moves either package's own model gradients by
+# 1e-3 to 1e-2 of a leaf's scale, so no second implementation holds them to
+# the 1e-4 bar.  They refuse train mode (ROADMAP §3).
+BF16_ROUTES = ("sep_fast", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,13 +109,14 @@ def gat_conv_for(gat_impl: str):
       pallas_sep[_fast][@gc]    ops.gat_group_sep.gat_conv_group_sep (K5);
                                 "_fast" takes bf16 payloads
       naive, fast               ops.gat.gat_conv_naive, ops.gat.gat_conv
+      bf16                      ops.gat.gat_conv(fast=True)
+      chunked                   ops.gat.gat_conv_chunked (large n)
       sep, sep_fast             ops.gat_sep.gat_conv_sep (sorted prefixes)
 
     "@gc" (an int >= 1) is the TPU kernel's city groups per grid cell: it is
     checked and then ignored, since it changes no number and the CUDA launch
-    has no such grid.  "chunked" and "bf16" wait for a later slice and raise
-    NotImplementedError; any other name raises ValueError (gnngls_tpu runs
-    its dense path on an unknown name)."""
+    has no such grid.  Any other name raises ValueError (gnngls_tpu runs its
+    dense path on an unknown name)."""
     if gat_impl in ("auto", "pallas"):
         return gat_conv_group
     if gat_impl == "pallas_mxu":
@@ -114,6 +125,10 @@ def gat_conv_for(gat_impl: str):
         return gat_conv_naive
     if gat_impl == "fast":
         return gat_conv
+    if gat_impl == "bf16":
+        return functools.partial(gat_conv, fast=True)
+    if gat_impl == "chunked":
+        return gat_conv_chunked
     if gat_impl in ("sep", "sep_fast"):
         return functools.partial(gat_conv_sep, fast=gat_impl == "sep_fast")
     base, at, gc = gat_impl.partition("@")
@@ -122,9 +137,6 @@ def gat_conv_for(gat_impl: str):
             raise ValueError(f"gat_impl {gat_impl!r}: the group chunk after '@' "
                              "must be an integer >= 1")
         return functools.partial(gat_conv_group_sep, fast=base == "pallas_sep_fast")
-    if gat_impl in ("chunked", "bf16"):
-        raise NotImplementedError(f"gat_impl {gat_impl!r} waits for a later slice of "
-                                  "the port (ROADMAP queue 5)")
     raise ValueError(f"unknown gat_impl {gat_impl!r}")
 
 
@@ -148,9 +160,11 @@ class RegretGNN(nn.Module):
         `taps` collects the embedding and every layer's output when a list is
         given, with x's batch axes."""
         conv = gat_conv_for(gat_impl)
-        if self.training and gat_impl == "sep_fast":
-            raise NotImplementedError("training through gat_impl 'sep_fast' waits for a "
-                                      "later slice of the port (ROADMAP queue 1)")
+        if self.training and gat_impl in BF16_ROUTES:
+            raise NotImplementedError(
+                f"training through gat_impl {gat_impl!r}: its bf16 rounding makes the "
+                "gradients jump under f32 noise, so they cannot be held to JAX's "
+                f"(ROADMAP §3); train through one of {TRAIN_ROUTES}")
         if self.training and gat_impl not in TRAIN_ROUTES:
             raise ValueError(f"gat_impl {gat_impl!r} has no backward; in train() mode "
                              f"use one of {TRAIN_ROUTES}")
@@ -171,6 +185,64 @@ class RegretGNN(nn.Module):
             if taps is not None:
                 taps.append(unbatch(h))
         return unbatch(self.decision(h))
+
+
+def forward_ring(model: RegretGNN, x: torch.Tensor, n: int, *, mesh, axis: str = "model",
+                 city_chunk: int = 8) -> torch.Tensor:
+    """Edge-sharded inference over K_n: x (..., eper, in_dim), this rank's
+    block of the edge axis padded over `axis` (ops.gat_ring.ring_pad, then
+    edge_sharding) -> (..., eper, out_dim), the same block.  Every per-edge
+    op stays local and the GATConvs exchange over the rings.  BatchNorm uses
+    its running statistics, so the model must be in eval mode; padding lanes
+    carry garbage (ops.gat_ring.ring_unpad strips them)."""
+    from ..ops.gat_ring import gat_conv_ring
+
+    if model.training:
+        raise ValueError("forward_ring is inference only: call model.eval() first")
+    exact_f32_matmuls()
+    topo = build_topology(n)
+    with torch.no_grad():
+        h = model.embed(x)
+        for layer in model.layers:
+            h = h + gat_conv_ring(layer.gat.params(), topo, h, model.cfg.n_heads, mesh, axis,
+                                  city_chunk=city_chunk)
+            h = layer.bn1(h)
+            h = h + layer.ffn2(torch.relu(layer.ffn1(h)))
+            h = layer.bn2(h)
+        return model.decision(h)
+
+
+def shard_params_tp(model: RegretGNN, mesh, axis: str = "model") -> RegretGNN:
+    """A copy of the model whose FFNs hold this rank's slices of the hidden
+    units over `axis` (ops.tp.shard_ffn_params); everything else whole."""
+    from ..ops.tp import shard_ffn_params
+
+    tp = copy.deepcopy(model)
+    for layer in tp.layers:
+        layer.ffn1, layer.ffn2 = shard_ffn_params(layer.ffn1, layer.ffn2, mesh, axis)
+    return tp
+
+
+def forward_tp(model: RegretGNN, x: torch.Tensor, *, mesh, axis: str = "model",
+               gat_impl: str = "fast") -> torch.Tensor:
+    """The forward of a `shard_params_tp` copy: x (B, E, in_dim) replicated
+    -> (B, E, out_dim) replicated.  The FFNs run split over `axis` with one
+    all_reduce each (ops.tp.ffn_tp); the GATConv ("fast" or "naive"),
+    BatchNorm (train or eval, as the model's mode; the running statistics
+    update in train mode), embedding and decision run whole.  No gradient."""
+    from ..ops.tp import ffn_tp
+
+    conv = gat_conv_naive if gat_impl == "naive" else gat_conv
+    exact_f32_matmuls()
+    topo = build_topology(n_from_edges(x.shape[-2]))
+    with torch.no_grad():
+        h = model.embed(x)
+        for layer in model.layers:
+            h = h + conv(layer.gat.params(), topo, h, model.cfg.n_heads)
+            h = layer.bn1(h)
+            h = h + ffn_tp(layer.ffn1, layer.ffn2, h, mesh, axis)
+            h = layer.bn2(h)
+        return model.decision(h)
 
 
 def init_params(cfg: RegretGNNConfig, generator: Optional[torch.Generator] = None) -> RegretGNN:

@@ -7,7 +7,12 @@ destination's line-graph neighbours (never itself), weighted feature sum.
 * `gat_conv_naive` gathers the explicit (E, 2(n-2)) neighbour lists.
 * `gat_conv` is the dense city-group form: per city u, scores of the
   (n-1) x (n-1) group S_u with the self pair masked, stabilised by the max
-  over both groups of each destination.
+  over both groups of each destination.  fast=True is the `bf16` route:
+  the attention weights p and the features are rounded to bf16 before the
+  aggregation, which sums in f32 (`to_bf16`).
+* `gat_conv_chunked` is the `chunked` route for large n: the groups in
+  chunks of cities, each with its own max (flash partials), merged per
+  edge, so the score tensor never exceeds one chunk.
 The main path runs `ops.gat_group.gat_conv_group` instead (the CUDA kernel).
 The checks of the group partials' inputs, shared by their kernels'
 wrappers, sit at the end.
@@ -52,6 +57,19 @@ def leaky(s: torch.Tensor) -> torch.Tensor:
     return torch.where(s > 0, s, LEAKY_SLOPE * s)
 
 
+def to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 and held in x's dtype.
+
+    gnngls_tpu's bf16 routes cast operands to bf16 and contract them with
+    f32 accumulation (preferred_element_type=f32).  A torch product of bf16
+    operands returns bf16, which would round the sum too; products of
+    bf16 values are exact in f32, so the port contracts these values in
+    f32 (TF32 stays off: `exact_f32_matmuls`).  Under autograd the casts'
+    backward rounds the cotangent to bf16 where JAX's transpose of the
+    contraction does (its result is cast to the bf16 operand's dtype)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def project(p: GATParams, x: torch.Tensor, n_heads: int):
     """x (..., E, C_in) -> h (..., E, H, F), el and er (..., E, H)."""
     h = torch.matmul(x, p.fc_w)
@@ -84,7 +102,10 @@ def gat_conv_naive(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
 
 
 def gat_conv(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
-             n_heads: int) -> torch.Tensor:
+             n_heads: int, fast: bool = False) -> torch.Tensor:
+    """x (..., E, C_in) -> (..., E, H*F).  fast=True rounds p and the
+    features to bf16 before the aggregation; the projection stays f32 (as
+    JAX's DEFAULT precision is on the CPU)."""
     n = topo.n
     h, el, er = project(p, x, n_heads)
     city = topo_index(topo, x.device, "city_edges")
@@ -98,6 +119,8 @@ def gat_conv(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
     m = torch.maximum(m_flat[..., su, :], m_flat[..., sv, :])
     p_ = torch.exp(s - m[..., city, :][..., :, :, None, :])
     z_g = p_.sum(dim=-2)
+    if fast:
+        p_, h_c = to_bf16(p_), to_bf16(h_c)
     num_g = torch.einsum("...uijh,...ujhf->...uihf", p_, h_c)
     z_flat = z_g.reshape(z_g.shape[:-3] + (n * (n - 1),) + z_g.shape[-1:])
     num_flat = num_g.reshape(num_g.shape[:-4] + (n * (n - 1),) + num_g.shape[-2:])
@@ -105,6 +128,36 @@ def gat_conv(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
     num = num_flat[..., su, :, :] + num_flat[..., sv, :, :]
     out = num / z[..., None]
     return out.reshape(out.shape[:-2] + (-1,))
+
+
+def gat_conv_chunked(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
+                     n_heads: int, city_chunk: int = 16) -> torch.Tensor:
+    """x (..., E, C_in) -> (..., E, H*F), the city groups `city_chunk` at a
+    time (the largest divisor of n not above it when it does not divide n).
+    Each chunk gives the groups' flash partials: own max m over the sources
+    (the self pair masked), z and num offset by it; the two groups of each
+    edge are merged by max-rescaling.  Peak score memory is city_chunk / n of
+    `gat_conv`'s; autograd keeps each chunk's scores for the backward."""
+    from .gat_group import merge_group_partials
+
+    n = topo.n
+    if n % city_chunk:
+        city_chunk = max(c for c in range(1, city_chunk + 1) if n % c == 0)
+    lead = x.shape[:-2]
+    h, el, er = project(p, x.reshape((-1,) + x.shape[-2:]), n_heads)
+    city = topo_index(topo, x.device, "city_edges")
+    eye = torch.eye(n - 1, dtype=torch.bool, device=x.device)[:, :, None]
+    parts = []
+    for c0 in range(0, n, city_chunk):
+        ce = city[c0:c0 + city_chunk]
+        s = leaky(el[:, ce][:, :, None] + er[:, ce][:, :, :, None])  # (B, chunk, tgt, src, H)
+        s = s.masked_fill(eye, float("-inf"))
+        m = s.amax(dim=-2)
+        p_ = torch.exp(s - m[..., None, :])
+        parts.append((m, p_.sum(dim=-2), torch.einsum("buijh,bujhf->buihf", p_, h[:, ce])))
+    m, z, num = (torch.cat(t, dim=1) for t in zip(*parts))
+    out = merge_group_partials(m, z, num, topo)
+    return out.reshape(lead + out.shape[-2:])
 
 
 def _check_inputs(el, er, h, city_edges):

@@ -8,12 +8,13 @@ split at a threshold in el:
   num_i = B_i sum_{el_j > -er_i} A_j h_j + D_i sum_{el_j <= -er_i} C_j h_j
 
 with A, C, B, D as in ops/gat_group_sep.py.  Each group's el is sorted once;
-prefix sums of C and suffix sums of A (payloads as triangular matmuls with f32
-accumulation, the suffix taken directly, not as total minus prefix) are read
+prefix sums of C and suffix sums of A (payloads as triangular matmuls in the
+activations' dtype, the suffix taken directly, not as total minus prefix) are read
 at each row's threshold, found by binary search.  The target's own term is
 taken out in the linear domain, and the one row i = argmax el per (group,
 head), whose factors are not bounded by 1, is computed directly.  fast=True
-rounds the payloads to bf16; the projection stays f32.
+rounds the payloads to bf16 (`ops.gat.to_bf16`: held in the activations'
+dtype, summed in it); the projection stays f32.
 
 This is the `sep` / `sep_fast` route and a second reference for K5 in the
 tests; K5's plain twin is the mask form in ops/gat_group_sep.py.
@@ -24,17 +25,17 @@ from __future__ import annotations
 import torch
 
 from ..core.graph import LineGraphTopology
-from .gat import LEAKY_SLOPE, GATParams, leaky, project, topo_index
+from .gat import LEAKY_SLOPE, GATParams, leaky, project, to_bf16, topo_index
 from .gat_group import merge_group_partials
 
 
 def _scan_payload(x: torch.Tensor, suffix: bool = False) -> torch.Tensor:
     """Inclusive prefix (or suffix) sums of (..., K, H, F) along K, as a
-    (K, K) triangular matmul in f32."""
+    (K, K) triangular matmul in x's dtype."""
     K, H, F = x.shape[-3:]
-    ones = torch.ones((K, K), dtype=torch.float32, device=x.device)
+    ones = torch.ones((K, K), dtype=x.dtype, device=x.device)
     tri = torch.triu(ones) if suffix else torch.tril(ones)
-    out = torch.matmul(tri, x.float().reshape(x.shape[:-3] + (K, H * F)))
+    out = torch.matmul(tri, x.reshape(x.shape[:-3] + (K, H * F)))
     return out.reshape(x.shape)
 
 
@@ -58,11 +59,11 @@ def gat_conv_sep_partials(p: GATParams, topo: LineGraphTopology, x: torch.Tensor
     Bf = torch.exp(er_c + M - m_g)
     Dn = torch.exp(LEAKY_SLOPE * (er_c + M) - m_g)
 
-    pay_dt = torch.bfloat16 if fast else h_c.dtype
+    pay = to_bf16 if fast else (lambda t: t)  # noqa: E731
     el_s, perm = torch.sort(el_c, dim=-2)
     A_s, C_s = A.gather(-2, perm), C.gather(-2, perm)
-    Ah = (A[..., None] * h_c).to(pay_dt)
-    Ch = (C[..., None] * h_c).to(pay_dt)
+    Ah = pay(A[..., None] * h_c)
+    Ch = pay(C[..., None] * h_c)
     perm_p = perm[..., None].expand(Ah.shape)
     PC = torch.cumsum(C_s, dim=-2)
     SA = torch.flip(torch.cumsum(torch.flip(A_s, (-2,)), dim=-2), (-2,))
@@ -96,8 +97,7 @@ def gat_conv_sep_partials(p: GATParams, topo: LineGraphTopology, x: torch.Tensor
     m_star = leaky(M2 + er_star)
     p_star = torch.where(is_star, 0.0, torch.exp(leaky(el_c + er_star) - m_star))
     z_star = p_star.sum(dim=-2, keepdim=True)
-    num_star = torch.einsum("...kh,...khf->...hf", p_star.to(pay_dt).float(),
-                            h_c.to(pay_dt).float())
+    num_star = torch.einsum("...kh,...khf->...hf", pay(p_star), pay(h_c))
     z_g = torch.where(is_star, z_star, z_g)
     num_g = torch.where(is_star[..., None], num_star[..., None, :, :], num_g)
     return m_g, z_g, num_g

@@ -1,13 +1,25 @@
-"""Nearest-neighbour construction (gnngls_tpu/search/construct.py).
+"""Tour construction (gnngls_tpu/search/construct.py).
 
-Greedy min-guide tour from the depot, closed at the depot; ties go to the
-lowest city id, as Python's min() over G.neighbors does in the reference.
-The other constructors wait for the reference-API slice.
+* `nearest_neighbor_batch`: greedy min-guide tour from the depot, closed at
+  the depot; ties go to the lowest city id, as Python's min() over
+  G.neighbors does in the reference.
+* `probabilistic_nearest_neighbour` and its best-of-n: the next city is
+  sampled with weights from the (inverted) guide row, with the reference's
+  guards.  A categorical draw is argmax(logits + g) with g Gumbel noise, which
+  is how jax.random.categorical draws it; the noise may be passed in, so the
+  same noise gives JAX's tours.  The steps run batched over instances and
+  samples on the guide's device.
+* `cheapest_insertion` and `insertion`: host numpy, exact.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from .moves import tour_costs
 
 
 def nearest_neighbor_batch(W: torch.Tensor, depot: int = 0) -> torch.Tensor:
@@ -26,3 +38,114 @@ def nearest_neighbor_batch(W: torch.Tensor, depot: int = 0) -> torch.Tensor:
         order.append(cur)
     order.append(order[0])
     return torch.stack(order, dim=1).to(torch.int32)
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """-log(-log(u)) with u uniform in [tiny, 1), drawn on the generator's
+    device (the CPU's default generator when None)."""
+    device = generator.device if generator is not None else "cpu"
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def probabilistic_nearest_neighbour_batch(W: torch.Tensor, depot: int, noise: torch.Tensor,
+                                          invert: bool = True) -> torch.Tensor:
+    """(B, n, n) guides and (B, n-1, n) Gumbel noise -> (B, n+1) int32 tours.
+
+    Step t from city c: p = W[c]; if any entry of p is +-inf, p becomes
+    the indicator of the inf entries; if p sums to 0 over the unvisited
+    cities, p becomes all ones; invert takes 1/p; visited cities get
+    logit -inf, the others log p; the next city is the first argmax of
+    logits + noise[:, t]."""
+    B, n, _ = W.shape
+    ar = torch.arange(n, device=W.device)
+    b = torch.arange(B, device=W.device)
+    noise = noise.to(device=W.device, dtype=W.dtype)
+    cur = torch.full((B,), depot, dtype=torch.long, device=W.device)
+    visited = (ar == depot)[None, :].repeat(B, 1)
+    order = [cur]
+    for t in range(n - 1):
+        p = W[b, cur]
+        is_inf = torch.isinf(p)
+        p = torch.where(is_inf.any(dim=1, keepdim=True), is_inf.to(W.dtype), p)
+        masked_sum = torch.where(visited, 0.0, p).sum(dim=1, keepdim=True)
+        p = torch.where(masked_sum == 0.0, torch.ones_like(p), p)
+        if invert:
+            p = 1.0 / p
+        logits = torch.where(visited, -torch.inf, torch.log(p))
+        cur = torch.argmax(logits + noise[:, t], dim=1)
+        visited = visited | (ar[None, :] == cur[:, None])
+        order.append(cur)
+    order.append(order[0])
+    return torch.stack(order, dim=1).to(torch.int32)
+
+
+def probabilistic_nearest_neighbour(W: torch.Tensor, depot: int, invert: bool = True,
+                                    generator: Optional[torch.Generator] = None,
+                                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sampled tour over the (n, n) guide W: (n+1,) int32.  noise
+    (n-1, n), by default drawn from `generator`."""
+    n = W.shape[0]
+    if noise is None:
+        noise = gumbel_noise((n - 1, n), generator)
+    return probabilistic_nearest_neighbour_batch(W[None], depot, noise[None], invert)[0]
+
+
+def best_probabilistic_nearest_neighbour(W: torch.Tensor, depot: int, n_iters: int,
+                                         guide: Optional[torch.Tensor] = None,
+                                         generator: Optional[torch.Generator] = None,
+                                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The best of n_iters tours sampled over `guide` (default W) by their
+    cost under W, the first on ties: (n+1,) int32.  noise (n_iters, n-1, n),
+    by default drawn from `generator`; the samples run as one batch."""
+    n = W.shape[0]
+    guide = W if guide is None else guide
+    if noise is None:
+        noise = gumbel_noise((n_iters, n - 1, n), generator)
+    tours = probabilistic_nearest_neighbour_batch(guide.expand(n_iters, n, n), depot, noise)
+    costs = tour_costs(W.expand(n_iters, n, n), tours.long())
+    return tours[torch.argmin(costs)]
+
+
+# ---------------------------------------------------------------------------
+# Host-side insertion heuristics (the reference's API, gnngls/algorithms.py)
+
+
+def cheapest_insertion(W: np.ndarray, sub_tour, node) -> list:
+    """Insert `node` into the closed sub-tour where the whole re-costed tour
+    is cheapest; the first minimum wins."""
+    sub_tour = list(sub_tour)
+    best, best_cost = None, None
+    for j in range(1, len(sub_tour)):
+        cand = sub_tour[:j] + [node] + sub_tour[j:]
+        cost = float(np.asarray(W)[cand[:-1], cand[1:]].sum())
+        if best is None or cost < best_cost:
+            best, best_cost = cand, cost
+    return best
+
+
+def insertion(W: np.ndarray, depot: int, mode: str = "farthest", rng=None) -> list:
+    """Random, nearest or farthest insertion from the depot's loop; `rng` a
+    numpy Generator (a fresh one when None) for mode "random"."""
+    if mode not in ("random", "nearest", "farthest"):
+        raise ValueError(f"Unknown mode: {mode}")
+    W = np.asarray(W)
+    n = W.shape[0]
+    rng = np.random.default_rng() if rng is None else rng
+    nodes = [x for x in range(n) if x != depot]
+    tour = [depot, depot]
+    while nodes:
+        if mode == "random":
+            nxt = int(rng.choice(nodes))
+        else:
+            nxt, nxt_cost = None, None
+            for i in tour:
+                for j in nodes:
+                    w = W[i, j]
+                    if (nxt is None or (mode == "nearest" and w < nxt_cost)
+                            or (mode == "farthest" and w > nxt_cost)):
+                        nxt, nxt_cost = j, w
+        nodes.remove(nxt)
+        tour = cheapest_insertion(W, tour, nxt)
+    return tour

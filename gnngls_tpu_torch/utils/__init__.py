@@ -1,10 +1,12 @@
-"""Host-side tour utilities (numpy), as in gnngls_tpu/utils/__init__.py."""
+"""Host-side tour utilities (numpy), as in gnngls_tpu/utils/__init__.py.
+
+`utils.profiling` holds the profiler helpers."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.graph import edge_index, n_edges
+from ..core.graph import edge_index, n_edges
 
 
 def tour_cost(D: np.ndarray, tour) -> float:
@@ -28,3 +30,10 @@ def is_valid_tour(n: int, tour) -> bool:
         return False
     counts = np.bincount(np.asarray(t), minlength=n)
     return counts[0] == 2 and bool((counts[1:] == 1).all()) and len(counts) == n
+
+
+def is_equivalent_tour(tour_a, tour_b) -> bool:
+    """Equal, or equal when one is reversed."""
+    a = list(np.asarray(tour_a).tolist())
+    b = list(np.asarray(tour_b).tolist())
+    return a == b or a == b[::-1]

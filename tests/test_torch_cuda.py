@@ -489,3 +489,146 @@ def test_resume_the_shipped_checkpoint_on_the_card(cuda, tmp_path):
     assert row["loss"] < 2 * 0.001972 and row["val_loss"] < 2 * 0.001931
     with np.load(tmp_path / "checkpoint_final.npz") as z:
         assert int(z["opt_state::count"]) == int(z["opt_state::inner_state/0/count"]) == 1638 + 3
+
+
+def _conv_case(n, H, F, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    c = H * F
+    arrays = [rng.normal(size=s) * 0.5 for s in ((c, c), (H, F), (H, F))]
+    x = rng.normal(size=(2, n * (n - 1) // 2, c))
+    return [torch.as_tensor(a, dtype=dtype) for a in (*arrays, x)]
+
+
+@pytest.mark.parametrize("route,n,H,F", [("chunked", 120, 8, 16), ("chunked", 30, 2, 8),
+                                         ("bf16", 100, 8, 16), ("bf16", 20, 4, 8)])
+def test_chunked_and_bf16_routes_on_the_card_match_the_cpu(cuda, route, n, H, F):
+    """The plain routes on the card against the CPU: chunked at 2e-5 of the
+    scale (the conv's f32 bar against JAX); bf16 at 2e-3 (tests/
+    test_torch_gat_sep.py's BF16_VS_F32: f32 noise moves bf16 roundings),
+    and its GATConv gradient in float64 at 1e-4 of each leaf's scale."""
+    from gnngls_tpu_torch.models.regret_gat import gat_conv_for
+    from gnngls_tpu_torch.ops.gat import GATParams
+
+    conv = gat_conv_for(route)
+    topo = build_topology(n)
+    leaves = _conv_case(n, H, F, n)
+    want = conv(GATParams(*leaves[:3]), topo, leaves[3], H)
+    got = conv(GATParams(*(t.to(cuda) for t in leaves[:3])), topo, leaves[3].to(cuda), H)
+    bar = (2e-5 if route == "chunked" else 2e-3) * max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= bar
+    grads = []
+    for dev in ("cpu", cuda):
+        ls = [t.to(device=dev, dtype=torch.float64).requires_grad_() for t in leaves]
+        conv(GATParams(*ls[:3]), topo, ls[3], H).sum().backward()
+        grads.append([t.grad.cpu() for t in ls])
+    for a, b in zip(grads[1], grads[0]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A NCCL process group of one rank and its (data, model) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from gnngls_tpu_torch.parallel import mesh as pm
+    from gnngls_tpu_torch.parallel import multihost
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(coordinator_address=f"localhost:{port}", num_processes=1,
+                         process_id=0)
+    assert dist.get_backend() == "nccl"
+    yield pm.make_mesh(axes=("data", "model"))
+    dist.destroy_process_group()
+
+
+def test_ring_tp_and_sharded_conv_at_world_size_one_under_nccl(nccl_mesh):
+    """gat_conv_ring (a one-member ring: nothing is sent), gat_conv_sharded,
+    ffn_tp and the model's forward_ring and forward_tp on the card against
+    the single-device paths, at the tolerances the JAX package's tests hold
+    them to (2e-5, 2e-4, 1e-5, 3e-5, 2e-4)."""
+    from gnngls_tpu_torch.models.regret_gat import (RegretGNNConfig, forward_ring,
+                                                    forward_tp, init_params,
+                                                    shard_params_tp)
+    from gnngls_tpu_torch.ops import gat_ring, tp
+    from gnngls_tpu_torch.ops.gat import GATParams, gat_conv
+    from gnngls_tpu_torch.ops.gat_sharded import gat_conv_sharded
+
+    cuda, mesh = torch.device("cuda"), nccl_mesh
+    n, H, F = 24, 4, 8
+    topo = build_topology(n)
+    leaves = [t.to(cuda) for t in _conv_case(n, H, F, 3)]
+    p, x = GATParams(*leaves[:3]), leaves[3]
+    want = gat_conv(p, topo, x, H)
+    ring = gat_ring.gat_conv_ring(p, topo, gat_ring.edge_sharding(x, mesh), H, mesh,
+                                  city_chunk=4)
+    torch.testing.assert_close(ring, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(gat_conv_sharded(p, topo, x, H, mesh), want, rtol=2e-4,
+                               atol=2e-4)
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4),
+                        torch.Generator().manual_seed(4)).to(cuda).eval()
+    xm = torch.rand((3, topo.n_edges, 1), generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.no_grad():
+        want = model(xm, gat_impl="fast")
+        layer = model.layers[0]
+        f1, f2 = tp.shard_ffn_params(layer.ffn1, layer.ffn2, mesh)
+        h = torch.randn((5, 32), generator=torch.Generator().manual_seed(6)).to(cuda)
+        torch.testing.assert_close(tp.ffn_tp(f1, f2, h, mesh),
+                                   layer.ffn2(torch.relu(layer.ffn1(h))), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(forward_ring(model, xm, n, mesh=mesh, city_chunk=4), want,
+                               rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(forward_tp(shard_params_tp(model, mesh), xm, mesh=mesh), want,
+                               rtol=2e-4, atol=1e-5)
+
+
+def test_sharded_gls_matches_the_kernel_under_nccl(nccl_mesh):
+    """make_sharded_gls at world size 1: K1 launched once, its tours, costs
+    and moves those of run_fixed_kernel."""
+    from gnngls_tpu_torch.parallel.eval_shard import make_sharded_gls
+    from gnngls_tpu_torch.search.batched import run_fixed_kernel
+
+    n, B = 50, 8
+    rng = np.random.default_rng(9)
+    D = coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32))
+    init = nearest_neighbor_batch(torch.as_tensor(D)).numpy()
+    run = make_sharded_gls(nccl_mesh, n_iters=5, perturbation_moves=10)
+    before = kernels.launches["gls_whole"]
+    tours, costs, moves = run(D, D[:, None], init)
+    assert kernels.launches["gls_whole"] == before + 1
+    ref = run_fixed_kernel(D, D[:, None], init, n_iters=5, perturbation_moves=10,
+                           device="cuda")
+    np.testing.assert_array_equal(tours, ref.best_tours)
+    np.testing.assert_array_equal(costs, np.float32(ref.best_costs))
+    np.testing.assert_array_equal(moves, ref.chunk_moves[:, -1])
+
+
+def test_multi_device_layer_on_every_card(cuda, tmp_path):
+    """tests/test_torch_dist.py's scenarios on one NCCL rank per card (2 or 4
+    cards; skipped otherwise), each held to JAX's single-device results (the
+    committed fixture gnngls_tpu_torch/testdata/jax_dist_results.pkl) at the
+    tolerances the JAX package's own tests use: the city-sharded and ring
+    GATConvs (rings over NVLink), forward_ring, the tensor-parallel FFN and
+    forward_tp, a data-parallel train step, make_sharded_gls on K1, the
+    meshes and the DTensor of the ranks' shards."""
+    import pathlib
+    import pickle
+
+    import torch.multiprocessing as tmp
+
+    import torch_dist_ranks
+
+    world = torch.cuda.device_count()
+    if world not in (2, 4):
+        pytest.skip(f"needs 2 or 4 cards, found {world}")
+    fixture = (pathlib.Path(__file__).resolve().parent.parent
+               / "gnngls_tpu_torch/testdata/jax_dist_results.pkl")
+    with open(fixture, "rb") as f:
+        want = pickle.load(f)[world]
+    kernels.build()  # once, before the ranks load it
+    tmp.spawn(torch_dist_ranks.run, args=(world, str(tmp_path / "rendezvous"), want, "cuda"),
+              nprocs=world, join=True)

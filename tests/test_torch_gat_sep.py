@@ -196,14 +196,11 @@ def test_model_forward_routes_match_jax(gat_impl):
 
 
 def test_route_names():
-    for name in ("chunked", "bf16"):
-        with pytest.raises(NotImplementedError, match="queue 5"):
-            gat_conv_for(name)
     for name in ("pallas_sep@0", "pallas_sep@x", "pallas_sep@", "pallas_sepx", "Fast", "gat"):
         with pytest.raises(ValueError):
             gat_conv_for(name)
     for name in ("auto", "pallas", "pallas_mxu", "naive", "fast", "sep", "sep_fast",
-                 "pallas_sep", "pallas_sep_fast", "pallas_sep_fast@10"):
+                 "pallas_sep", "pallas_sep_fast", "pallas_sep_fast@10", "chunked", "bf16"):
         assert callable(gat_conv_for(name))
     model = RegretGNN(RegretGNNConfig(embed_dim=16, n_heads=2))
     with pytest.raises(ValueError, match="unknown gat_impl"):

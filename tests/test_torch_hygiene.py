@@ -1,13 +1,15 @@
 """The port stands alone: no jax, no gnngls_tpu, CUDA by default.
 
-* Importing every module of gnngls_tpu_torch and chip_smoke.py leaves jax,
+* Importing every module of gnngls_tpu_torch, chip_smoke.py and the rank
+  helper of tests/test_torch_dist.py (tests/torch_dist_ranks.py) leaves jax,
   gnngls_tpu, pandas, networkx and matplotlib out of sys.modules (checked in
   a fresh interpreter, against the modules present before the imports).
 * Without a card the entry points raise unless device="cpu" is asked for.
-* Modes not ported yet raise NotImplementedError (the `chunked` and `bf16`
-  GAT routes, training through `sep_fast`); the evaluation modes and exact
-  solvers ported since run, and train mode runs on the plain routes while
-  the kernel routes, which have no backward, refuse it.
+* What still raises NotImplementedError: training through the bf16 routes
+  (`bf16`, `sep_fast`), whose gradients cannot be held to JAX's.  Every GAT
+  route runs in eval mode, train mode runs on the plain f32 routes (`chunked`
+  among them), the kernel routes, which have no backward, refuse it, and the
+  evaluation modes and exact solvers ported since run.
 """
 
 import pathlib
@@ -42,7 +44,8 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 before = set(sys.modules)
 sys.path.insert(0, {root!r})
-import chip_smoke, gnngls_tpu_torch
+sys.path.insert(0, {tests!r})
+import chip_smoke, gnngls_tpu_torch, torch_dist_ranks
 for m in pkgutil.walk_packages(gnngls_tpu_torch.__path__, "gnngls_tpu_torch."):
     importlib.import_module(m.name)
 new = set(sys.modules) - before
@@ -54,12 +57,13 @@ print("COUNT", sum(m.startswith("gnngls_tpu_torch") for m in new))
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    proc = subprocess.run([sys.executable, "-c", _PROBE.format(root=str(ROOT))],
+    proc = subprocess.run([sys.executable, "-c", _PROBE.format(root=str(ROOT),
+                                                               tests=str(ROOT / "tests"))],
                           capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     count = int(proc.stdout.split("COUNT")[1])
-    assert count >= 20
+    assert count >= 35
 
 
 def _tiny():
@@ -95,20 +99,24 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_unported_modes_raise():
+    # the chunked and bf16 routes are ported (they raised before the last slice)
+    model = RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).eval()
+    x = torch.rand((2, 10, 1))
     for impl in ("chunked", "bf16"):
-        with pytest.raises(NotImplementedError):
-            gat_conv_for(impl)
+        assert callable(gat_conv_for(impl))
+        assert model(x, gat_impl=impl).shape == (2, 10, 1)
     # train mode runs (it raised before the training slice) on the plain routes;
     # the kernel routes have no backward and refuse it, naming the routes that train
-    model = RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).train()
-    x = torch.rand((2, 10, 1))
-    for impl in ("fast", "naive", "sep"):
+    model.train()
+    for impl in ("fast", "naive", "sep", "chunked"):
         assert model(x, gat_impl=impl).shape == (2, 10, 1)
     for impl in ("auto", "pallas", "pallas_mxu", "pallas_sep", "pallas_sep_fast"):
-        with pytest.raises(ValueError, match="'fast', 'naive', 'sep'"):
+        with pytest.raises(ValueError, match="'fast', 'naive', 'sep', 'chunked'"):
             model(x, gat_impl=impl)
-    with pytest.raises(NotImplementedError):
-        model(x, gat_impl="sep_fast")
+    # still refused: training through the bf16 routes (ROADMAP §3)
+    for impl in ("sep_fast", "bf16"):
+        with pytest.raises(NotImplementedError):
+            model(x, gat_impl=impl)
     # the exact solvers are ported (they raised before the data-generation slice):
     # gnngls_tpu's rule, Held-Karp up to n=16 (22 with the native oracle), else GLS
     for solver in ("held_karp", "concorde"):

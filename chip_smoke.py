@@ -92,8 +92,8 @@ and prints no result line:
      REFERENCE_10S_MOVES[100], weight guide, through K1; (f) the shipped
      checkpoint exported to a reference .pt under build/ and loaded back:
      predictions on instances 0-63 equal to the npz model's bit for bit.
- 15. training (no kernel on its path: autograd through the plain `fast`
-     route): (a) one train step on the card against the CPU (embed 32, 4
+ 15. training (no kernel on its path: autograd through the plain routes,
+     unless a route is named): (a) one train step on the card against the CPU (embed 32, 4
      heads, depth 4, n=20, batch 8, seeded), in float64 and float32: loss,
      every gradient leaf and the BatchNorm running statistics; (b)
      train_model resumed from the shipped checkpoint (Adam at count 1638) on
@@ -105,7 +105,17 @@ and prints no result line:
      device memory printed; (c) that run's checkpoint through
      models.convert.load_model: K2's predictions on the 500 test instances
      (batch 64) against the fast route's, then evaluate at n_iters 100 and
-     its mean gap.
+     its mean gap; (d) epoch 26 resumed from the shipped checkpoint (Adam
+     state included) through each route that trains, `fast`, `sep`,
+     `sep_fast` and `bf16`, on the same batches: data/tsp100's first 512
+     train instances (16 steps at batch 32) and its 200 val instances, with
+     the launch counts reset just before each run and read just after (no
+     kernel launches); per route steps/s and training edges/s (the warm-up
+     steps left out), peak device memory, train and val loss (each within
+     twice the checkpoint's) and their relative distance from the `fast`
+     run's; then the `sep_fast`-trained weights served through K2 and K1 on
+     tsp100 test instances 0-63 (n_iters 100, pm 20), launches counted, tours
+     checked, the mean gap beside phase 3's on the same instances.
  16. data generation and regret labels (K1 with its k input): (a) K1 given a
      k per lane against its plain twin on the card, move for move: the warm
      forced-edge lanes of raw tsp100 instances 0-1 (all 4,950 edges, both
@@ -137,9 +147,13 @@ and prints no result line:
      predictions, instances 0-1 within 2e-3 of the scale of the same route
      on the CPU, the search (n_iters 100, pm 20) and its gap beside phase 3's,
      edges/s, peak memory; (c) one `chunked` train step on the card against
-     the CPU at phase 15a's shape and bars; the bf16 routes refuse train mode
-     and their GATConv's gradient (x and the parameters) on the card equals
-     the CPU's in float64 within 1e-4 of each leaf's scale; (d)
+     the CPU at phase 15a's shape and bars; one train step through each bf16
+     route (`sep_fast`, `bf16`) at that shape, card against CPU: in float64
+     within 1e-6 of each leaf, in float32 the loss and the largest gradient
+     miss each within twice the CPU's own spread when the input features
+     move by 1e-7 (relative, 16 seeded perturbations); their
+     GATConv's gradient (x and the parameters) on the card equals the CPU's
+     in float64 within 1e-4 of each leaf's scale; (d)
      best_probabilistic_nearest_neighbour (64 samples) on tsp100 instance 0
      under phase 3's regret, Gumbel noise from a seeded CPU generator: the
      card's tour equals the CPU's and is valid; (e) device_trace around one
@@ -205,6 +219,18 @@ FI_RTOL = 1e-6  # best costs of the first-improvement search against the JAX fix
 TRAIN_LOSS_RTOL, TRAIN_TOL64, TRAIN_TOL32, VANISHING = 1e-5, 1e-6, 1e-2, 1e-4
 RESUME_EPOCH = 26  # the shipped checkpoint ends at epoch 25 (count 1638 = 26 x 63)
 TRAIN_WARMUP = 3  # train steps left out of the steps/s figure
+# Phase 15d: epoch 26 through each route that trains, on the first ROUTE_TRAIN_INST of
+# data/tsp100's 2,000 train instances (16 steps at batch 32) and its 200 val instances.
+TRAINED_ROUTES, ROUTE_TRAIN_INST = ("fast", "sep", "sep_fast", "bf16"), 512
+# Phase 17c: a bf16 route's float32 train step on the card against the CPU.  A bf16
+# rounding is a step, so the bar is the CPU's own spread: the largest relative change
+# of its loss, and the largest per-leaf miss of its gradient, when the input features
+# move by NOISE (relative, N_NOISE seeded perturbations), times SPREAD_FACTOR
+# (tests/test_torch_train_bf16.py's bar against JAX).
+# A leaf's miss is its error over GRAD_TOL of its scale, or over VANISHING_TOL of the
+# largest where the f32 twin route's gradient of it is below VANISHING of the largest.
+NOISE, N_NOISE, SPREAD_FACTOR, GRAD_TOL, VANISHING_TOL = 1e-7, 16, 2.0, 1e-4, 1e-5
+F32_TWIN = {"bf16": "fast", "sep_fast": "sep"}
 # The label path (phase 16b): raw tsp100 instances 0-63, the production settings.
 LABEL_INST, LABEL_CHUNK, LABEL_PM = 64, 250, 20
 LABEL_FIXTURE = "gnngls_tpu_torch/testdata/jax_tsp100_labels_0to7.npz"
@@ -1507,6 +1533,91 @@ def phase15c_serve(dev, run_dir, ds):
         f"{PARENT_GAP100[0]:.4f}%)")
 
 
+def phase15d_train_routes(dev, ds, gap64, card):
+    """Epoch 26 resumed from the shipped checkpoint through each route that
+    trains, on the same batches; then the sep_fast-trained weights served
+    through K2 and K1 on tsp100 test instances 0-63."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.evaluate import evaluate
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+    from gnngls_tpu_torch.train import loop
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    pj = json.loads((ROOT / "models/tsp100/params.json").read_text())
+    scalers = ROOT / "data/tsp100/scalers.json"
+    train, val = (TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz",
+                                      ROOT / f"data/tsp100/{split}.txt", scalers_file=scalers)
+                  for split in ("train", "val"))
+    train = head(train, ROUTE_TRAIN_INST)
+    ckpt = ROOT / "models/tsp100/checkpoint_best_val.npz"
+    with np.load(ckpt) as z:
+        shipped = json.loads(bytes(z["__meta__"].tobytes()).decode())
+    E = train.features.shape[1]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route in TRAINED_ROUTES:
+            cfg = loop.TrainConfig(**{**pj, "n_epochs": RESUME_EPOCH + 1, "gat_impl": route})
+            sizes = [min(cfg.batch_size, len(train) - s)
+                     for s in range(0, len(train), cfg.batch_size)]
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            stamps = []
+            _, history = loop.train_model(train, val, cfg, pathlib.Path(tmp) / route,
+                                          verbose=False, resume_from=ckpt, device=dev,
+                                          step_times=stamps)
+            peak = torch.cuda.max_memory_allocated(dev)
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            require([r["epoch"] for r in history] == [RESUME_EPOCH] and len(stamps) == len(sizes),
+                    f"{route}: trained epochs {[r['epoch'] for r in history]} in {len(stamps)} "
+                    f"steps, expected [{RESUME_EPOCH}] in {len(sizes)}")
+            require(not counts, f"{route}: training launched kernels {counts}")
+            row_ = history[0]
+            require(math.isfinite(row_["loss"]) and math.isfinite(row_["val_loss"])
+                    and row_["loss"] <= 2 * shipped["loss"]
+                    and row_["val_loss"] <= 2 * shipped["val_loss"],
+                    f"{route}: losses {row_['loss']}, {row_['val_loss']} not within twice the "
+                    f"checkpoint's")
+            span = stamps[-1] - stamps[TRAIN_WARMUP]
+            runs[route] = (row_, (len(sizes) - TRAIN_WARMUP - 1) / span,
+                           sum(sizes[TRAIN_WARMUP + 1:]) * E / span, peak)
+            if route == "sep_fast":
+                model = load_model(pathlib.Path(tmp) / route / "checkpoint_final.npz",
+                                   RegretGNNConfig(), device=dev)
+    log(f"phase 15d ({card}): epoch {RESUME_EPOCH} resumed from the shipped checkpoint through "
+        f"each route on the first {len(train)} train instances ({len(sizes)} steps at batch "
+        f"{cfg.batch_size}, n={train.n_nodes}) and {len(val)} val instances; steps "
+        f"{TRAIN_WARMUP + 1}-{len(sizes)} timed; no kernel launched; checkpoint train loss "
+        f"{shipped['loss']:.6f}, val loss {shipped['val_loss']:.6f}")
+    base = runs["fast"][0]
+    for route, (row_, steps_s, edges_s, peak) in runs.items():
+        log(f"  {route:8s} {steps_s:.4g} steps/s, {edges_s:.4g} training edges/s, peak device "
+            f"memory {peak} bytes ({peak / 2**30:.2f} GiB); train loss {row_['loss']:.6f} "
+            f"(rel {abs(row_['loss'] - base['loss']) / base['loss']:.3e} from fast's), val "
+            f"loss {row_['val_loss']:.6f} (rel "
+            f"{abs(row_['val_loss'] - base['val_loss']) / base['val_loss']:.3e})")
+    sub = head(ds, BATCH)
+    kernels.reset_launch_counts()
+    out = evaluate(sub, model=model, guides=["regret_pred"], n_iters=N_ITERS,
+                   perturbation_moves=PM, batch_size=BATCH, device=dev)
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    want = {"gat_group": model.cfg.depth, "gls_whole": 1}
+    require(counts == want, f"sep_fast-trained weights served with launches {counts}, "
+            f"expected {want}")
+    for b in range(len(sub)):
+        require(is_valid_tour(sub.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
+    gaps = out["gaps"]
+    require(bool(np.isfinite(gaps).all()), "the served gaps are not finite")
+    log(f"  the sep_fast-trained weights through K2 and K1 on instances 0-{len(sub) - 1} "
+        f"({counts}; n_iters {N_ITERS}, pm {PM}): mean gap {gaps.mean():.4f}% (shipped "
+        f"weights, phase 3, on the same instances: {gap64:.4f}%)")
+
+
 def tie(M):
     import numpy as np
 
@@ -1900,13 +2011,26 @@ def conv_grads_on(route, dev, dtype, arrays, x, ct, n, H):
     return [t.grad.double().cpu() for t in leaves]
 
 
-def phase17c_train_routes(dev, card):
-    import copy
+def leaf_misses(got, want, twin):
+    """The largest miss over the gradient leaves: a leaf's error over
+    GRAD_TOL of its scale, times GRAD_TOL, or over VANISHING_TOL of the
+    largest where the f32 twin's gradient of the leaf is below VANISHING of
+    its largest (tests/test_torch_train_bf16.py)."""
+    top = max(float(v.abs().max()) for v in want.values())
+    twin_top = max(float(v.abs().max()) for v in twin.values())
+    worst = 0.0
+    for key, w in want.items():
+        vanishing = float(twin[key].abs().max()) < VANISHING * twin_top
+        bar = VANISHING_TOL * top if vanishing else GRAD_TOL * float(w.abs().max())
+        worst = max(worst, GRAD_TOL * float((got[key] - w).abs().max()) / bar)
+    return worst
 
+
+def phase17c_train_routes(dev, card):
     import numpy as np
     import torch
 
-    from gnngls_tpu_torch.models.regret_gat import BF16_ROUTES, RegretGNNConfig, init_params
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, init_params
 
     n, B = 20, 8
     rng = np.random.default_rng(15)
@@ -1922,18 +2046,40 @@ def phase17c_train_routes(dev, card):
         log(f"  chunked train step {str(dtype)[6:]}: card vs CPU loss rel {rel:.3e}, gradients "
             f"within {worst['grad']:.3e} and running statistics within {worst['bn']:.3e} of "
             f"each leaf's largest value (bar {tol})")
-    m = copy.deepcopy(model).to(dev).train()
-    for route in BF16_ROUTES:
-        try:
-            m(torch.as_tensor(x, device=dev), gat_impl=route)
-        except NotImplementedError:
-            pass
-        else:
-            raise SmokeFailure(f"{route} trained: its gradients are not held to JAX's")
+    for route in F32_TWIN:
+        got = train_step_on(model, dev, torch.float64, x, y, gat_impl=route)
+        want = train_step_on(model, "cpu", torch.float64, x, y, gat_impl=route)
+        rel, worst = hold_train_step(got, want, TRAIN_TOL64, f"{route} train step float64")
+        log(f"  {route} train step float64: card vs CPU loss rel {rel:.3e}, gradients within "
+            f"{worst['grad']:.3e}, running statistics within {worst['bn']:.3e} (bar "
+            f"{TRAIN_TOL64})")
+        want = train_step_on(model, "cpu", torch.float32, x, y, gat_impl=route)
+        twin = train_step_on(model, "cpu", torch.float32, x, y, gat_impl=F32_TWIN[route])[1]
+        spread = loss_spread = 0.0
+        for seed in range(N_NOISE):
+            noise = np.random.default_rng(seed).standard_normal(x.shape)
+            moved = train_step_on(model, "cpu", torch.float32,
+                                  (x * (1.0 + NOISE * noise)).astype(np.float32), y,
+                                  gat_impl=route)
+            spread = max(spread, leaf_misses(moved[1], want[1], twin))
+            loss_spread = max(loss_spread, abs(moved[0] - want[0]) / abs(want[0]))
+        got = train_step_on(model, dev, torch.float32, x, y, gat_impl=route)
+        miss = leaf_misses(got[1], want[1], twin)
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        log(f"  {route} train step float32: card vs CPU loss rel {rel:.3e}, largest gradient "
+            f"miss {miss:.3e}; the CPU's own spread under {NOISE:g} input noise ({N_NOISE} "
+            f"seeds): loss {loss_spread:.3e}, gradients {spread:.3e} (bars {SPREAD_FACTOR} x "
+            f"spread)")
+        require(math.isfinite(got[0]) and rel <= SPREAD_FACTOR * loss_spread,
+                f"{route} float32 train step: loss {got[0]} vs {want[0]}, rel {rel:.3e} over "
+                f"{SPREAD_FACTOR} x the CPU's spread {loss_spread:.3e}")
+        require(miss <= SPREAD_FACTOR * spread,
+                f"{route} float32 train step: card vs CPU miss {miss:.3e} exceeds "
+                f"{SPREAD_FACTOR} x the CPU's spread {spread:.3e}")
     H, F = 4, 8
     arrays = [rng.normal(size=s) * 0.5 for s in ((H * F, H * F), (H, F), (H, F))]
     xc, ct = rng.normal(size=(B, E, H * F)), rng.normal(size=(B, E, H * F))
-    for route in BF16_ROUTES:
+    for route in F32_TWIN:
         got = conv_grads_on(route, dev, torch.float64, arrays, xc, ct, n, H)
         want = conv_grads_on(route, "cpu", torch.float64, arrays, xc, ct, n, H)
         worst = 0.0
@@ -1942,10 +2088,9 @@ def phase17c_train_routes(dev, card):
             require(err <= BF16_GRAD_TOL, f"{route} GATConv gradient {name}: card vs CPU "
                     f"{err:.3e} > {BF16_GRAD_TOL} of its scale")
             worst = max(worst, err)
-        log(f"  {route}: refuses train mode; its GATConv gradient in float64 on the card "
-            f"within {worst:.3e} of each leaf's scale of the CPU's (bar {BF16_GRAD_TOL})")
-    log(f"phase 17c ({card}): chunked trains as on the CPU; the bf16 routes' gradients "
-        "hold on the card")
+        log(f"  {route}: its GATConv gradient in float64 on the card within {worst:.3e} of "
+            f"each leaf's scale of the CPU's (bar {BF16_GRAD_TOL})")
+    log(f"phase 17c ({card}): chunked, bf16 and sep_fast train on the card as on the CPU")
 
 
 def phase17d_construction(ds, k2_preds, dev, card):
@@ -2156,7 +2301,7 @@ def main(argv=None) -> int:
         log("phase 4: the tsp100 path's kernels timed")
         k2_preds = predictions(out, ds.n_nodes)
         guide64, init64 = out["guide_stack"][:BATCH], out["init_tours"][:BATCH]
-        gap3 = float(out["gaps"].mean())
+        gap3, gap64 = float(out["gaps"].mean()), float(out["gaps"][:BATCH].mean())
         del out
         k3_err = phase5_gat_chunked(model, dev)
         phase6_gls_global(dev)
@@ -2201,6 +2346,7 @@ def main(argv=None) -> int:
             run_dir = pathlib.Path(tmp) / "train"
             phase15b_resume(dev, run_dir)
             phase15c_serve(dev, run_dir, ds)
+        phase15d_train_routes(dev, ds, gap64, card)
         log(f"phase 15: done on {card}")
         raw = raw_tsp100(LABEL_INST)
         phase16a_k_input(dev, raw)

@@ -42,15 +42,16 @@ from ..ops.linear import Linear
 from ..ops.norm import BatchNorm
 
 HIDDEN_DIM = 512
-# GATConv routes that train (plain torch under autograd, gradients held to
-# JAX's at 1e-4 of each leaf's scale); JAX's trainer runs "fast".
-TRAIN_ROUTES = ("fast", "naive", "sep", "chunked")
-# The bf16 routes round to bf16 where JAX rounds (their GATConv's gradients
-# equal JAX's given the same inputs), but a rounding is a step: f32 noise of
-# 1e-7 in the input features moves either package's own model gradients by
-# 1e-3 to 1e-2 of a leaf's scale, so no second implementation holds them to
-# the 1e-4 bar.  They refuse train mode (ROADMAP §3).
-BF16_ROUTES = ("sep_fast", "bf16")
+# GATConv routes that train: plain torch under autograd; JAX's trainer runs
+# "fast" by default and takes any of them.  The f32 routes' model gradients
+# are held to JAX's at 1e-4 of each leaf's scale.  The bf16 routes ("bf16",
+# "sep_fast") round where JAX rounds, but a rounding is a step, and f32
+# noise of 1e-7 in the input features moves JAX's own model gradients by
+# 1e-3 to 1e-2 of a leaf's scale.  So they are held layer by layer, on
+# JAX's activations, cotangents and rounding steps, at the f32 routes' 1e-4;
+# the whole step within JAX's own spread under that noise; and the loss
+# over epochs (tests/test_torch_train_bf16.py, ROADMAP §3).
+TRAIN_ROUTES = ("fast", "naive", "sep", "chunked", "bf16", "sep_fast")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +93,20 @@ class GATConvParams(nn.Module):
 class AttentionLayer(nn.Module):
     def __init__(self, cfg: RegretGNNConfig):
         super().__init__()
+        self.n_heads = cfg.n_heads
         self.gat = GATConvParams(cfg.embed_dim, cfg.n_heads, cfg.head_dim)
         self.bn1 = BatchNorm(cfg.embed_dim)
         self.ffn1 = Linear(cfg.embed_dim, cfg.hidden_dim)
         self.ffn2 = Linear(cfg.hidden_dim, cfg.embed_dim)
         self.bn2 = BatchNorm(cfg.embed_dim)
+
+    def forward(self, h: torch.Tensor, conv, topo) -> torch.Tensor:
+        """h (B, E, embed) -> the same: the skip-connected GATConv `conv`,
+        BatchNorm, the skip-connected FFN, BatchNorm."""
+        h = h + conv(self.gat.params(), topo, h, self.n_heads)
+        h = self.bn1(h)
+        h = h + self.ffn2(torch.relu(self.ffn1(h)))
+        return self.bn2(h)
 
 
 def gat_conv_for(gat_impl: str):
@@ -144,7 +154,8 @@ class RegretGNN(nn.Module):
     """The model, made in eval mode.  Its GATConv runs through the route
     `gat_impl` names (`gat_conv_for`); the default is the group kernel (K2 or
     K3 on the card, the plain twin on the CPU), which has no backward: in
-    train() mode pass one of TRAIN_ROUTES."""
+    train() mode pass one of TRAIN_ROUTES, the f32 or the bf16 plain
+    routes."""
 
     def __init__(self, cfg: RegretGNNConfig):
         super().__init__()
@@ -160,11 +171,6 @@ class RegretGNN(nn.Module):
         `taps` collects the embedding and every layer's output when a list is
         given, with x's batch axes."""
         conv = gat_conv_for(gat_impl)
-        if self.training and gat_impl in BF16_ROUTES:
-            raise NotImplementedError(
-                f"training through gat_impl {gat_impl!r}: its bf16 rounding makes the "
-                "gradients jump under f32 noise, so they cannot be held to JAX's "
-                f"(ROADMAP §3); train through one of {TRAIN_ROUTES}")
         if self.training and gat_impl not in TRAIN_ROUTES:
             raise ValueError(f"gat_impl {gat_impl!r} has no backward; in train() mode "
                              f"use one of {TRAIN_ROUTES}")
@@ -178,10 +184,7 @@ class RegretGNN(nn.Module):
         if taps is not None:
             taps.append(unbatch(h))
         for layer in self.layers:
-            h = h + conv(layer.gat.params(), topo, h, self.cfg.n_heads)
-            h = layer.bn1(h)
-            h = h + layer.ffn2(torch.relu(layer.ffn1(h)))
-            h = layer.bn2(h)
+            h = layer(h, conv, topo)
             if taps is not None:
                 taps.append(unbatch(h))
         return unbatch(self.decision(h))

@@ -51,7 +51,7 @@ class TrainConfig:
     val_on_train: bool = True  # reference quirk, train.py:137
     bug_compat_bce_target: bool = True  # the reference's in_solution holds regret
     depth_from_heads: bool = True  # reference quirk: depth = n_heads
-    gat_impl: str = "fast"  # a route of models.regret_gat.TRAIN_ROUTES
+    gat_impl: str = "fast"  # a route of models.regret_gat.TRAIN_ROUTES, f32 or bf16
     # Bouts: stop after this many epochs in this call, save checkpoint_{epoch}
     # and return without checkpoint_final; the caller resumes from it.
     max_epochs_per_call: Optional[int] = None

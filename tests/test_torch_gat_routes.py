@@ -13,10 +13,11 @@ that differentiate through bf16 roundings, against gnngls_tpu on the CPU.
   as jax.vjp: within 1e-4 of each leaf's scale (1e-5 of the largest for a
   leaf below 1e-4 of it).  For the bf16 routes the f32 route's gradient
   misses that bar, so the backward rounds where JAX's transposes round.
-  Whole-model gradients of the bf16 routes are not held: a bf16 rounding is
-  a step, and f32 noise of 1e-7 in the inputs moves either package's own
-  model gradients by 1e-3 to 1e-2 of a leaf's scale.  In train mode they
-  raise NotImplementedError.
+  The bf16 routes train: their forward runs in train mode and the gradient
+  reaches every parameter.  Their whole-model gradients are held to JAX's in
+  tests/test_torch_train_bf16.py, layer by layer and against JAX's own
+  spread: a bf16 rounding is a step, and f32 noise of 1e-7 in the inputs
+  moves either package's model gradients by 1e-3 to 1e-2 of a leaf's scale.
 """
 
 import jax
@@ -198,15 +199,20 @@ def test_chunked_train_step_matches_jax(target):
     assert_leaves_close(stats, jck._flatten(jbn), GRAD_TOL, what="bn state")
 
 
-def test_bf16_routes_refuse_train_mode_and_run_in_eval():
-    model = TM.RegretGNN(TM.RegretGNNConfig(embed_dim=8, n_heads=2)).train()
-    x = torch.rand((2, 10, 1))
-    for impl in TM.BF16_ROUTES:
-        with pytest.raises(NotImplementedError, match="bf16"):
-            model(x, gat_impl=impl)
-    assert bool((model.layers[0].bn1.mean == 0).all())  # refused before any update
+def test_bf16_routes_train_and_run_in_eval():
+    model = TM.init_params(TM.RegretGNNConfig(embed_dim=8, n_heads=2),
+                           torch.Generator().manual_seed(0)).train()
+    x = torch.rand((2, 10, 1), generator=torch.Generator().manual_seed(1))
+    for impl in ("sep_fast", "bf16"):
+        assert impl in TM.TRAIN_ROUTES
+        model.zero_grad()
+        model(x, gat_impl=impl).square().mean().backward()
+        for name, p in model.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), (impl, name)
+        assert float(model.layers[0].gat.attn_l.grad.abs().max()) > 0
+    assert not bool((model.layers[0].bn1.mean == 0).all())  # train mode updated the statistics
     model.eval()
-    for impl in TM.BF16_ROUTES + ("chunked",):
+    for impl in ("sep_fast", "bf16", "chunked"):
         assert torch.isfinite(model(x, gat_impl=impl)).all()
     # sep_fast in float64: the payloads still round to bf16, held in float64
     p = tgat.GATParams(*(torch.rand(s, dtype=torch.float64) for s in ((8, 8), (2, 4), (2, 4))))

@@ -111,12 +111,18 @@ def test_unported_modes_raise():
     for impl in ("fast", "naive", "sep", "chunked"):
         assert model(x, gat_impl=impl).shape == (2, 10, 1)
     for impl in ("auto", "pallas", "pallas_mxu", "pallas_sep", "pallas_sep_fast"):
-        with pytest.raises(ValueError, match="'fast', 'naive', 'sep', 'chunked'"):
+        with pytest.raises(ValueError, match="'fast', 'naive', 'sep', 'chunked', 'bf16', "
+                           "'sep_fast'"):
             model(x, gat_impl=impl)
-    # still refused: training through the bf16 routes (ROADMAP §3)
+    # the bf16 routes train (they raised NotImplementedError before the bf16 training
+    # slice): the forward runs in train mode and the gradient reaches every parameter
     for impl in ("sep_fast", "bf16"):
-        with pytest.raises(NotImplementedError):
-            model(x, gat_impl=impl)
+        model.zero_grad()
+        out = model(x, gat_impl=impl)
+        assert out.shape == (2, 10, 1)
+        out.square().mean().backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in model.parameters())
     # the exact solvers are ported (they raised before the data-generation slice):
     # gnngls_tpu's rule, Held-Karp up to n=16 (22 with the native oracle), else GLS
     for solver in ("held_karp", "concorde"):

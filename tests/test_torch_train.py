@@ -290,7 +290,10 @@ def test_train_mode_refuses_the_kernel_routes():
     for impl in ("auto", "pallas", "pallas_mxu", "pallas_sep", "pallas_sep_fast@2"):
         with pytest.raises(ValueError, match="fast"):
             model(x, gat_impl=impl)
-    with pytest.raises(NotImplementedError):
-        model(x, gat_impl="sep_fast")
     assert bool((model.layers[0].bn1.mean == 0).all())  # refused before any update
+    # sep_fast, a bf16 route, trains (tests/test_torch_train_bf16.py holds it to JAX)
+    x = torch.as_tensor(tsp10_batch(np.arange(2))["features"])
+    model(x, gat_impl="sep_fast").sum().backward()
+    assert not bool((model.layers[0].bn1.mean == 0).all())
+    assert torch.isfinite(model.layers[0].gat.fc_w.grad).all()
     model.eval()(x)  # eval mode still takes the kernel route's twin

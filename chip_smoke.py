@@ -92,9 +92,10 @@ and prints no result line:
      REFERENCE_10S_MOVES[100], weight guide, through K1; (f) the shipped
      checkpoint exported to a reference .pt under build/ and loaded back:
      predictions on instances 0-63 equal to the npz model's bit for bit.
- 15. training (no kernel on its path: autograd through the plain routes,
-     unless a route is named): (a) one train step on the card against the CPU (embed 32, 4
-     heads, depth 4, n=20, batch 8, seeded), in float64 and float32: loss,
+ 15. training (autograd through the plain routes; the sep routes' backward
+     launches the rank-sums kernel, no other runs): (a) one train step on the
+     card against the CPU (embed 32, 4 heads, depth 4, n=20, batch 8,
+     seeded), in float64 and float32: loss,
      every gradient leaf and the BatchNorm running statistics; (b)
      train_model resumed from the shipped checkpoint (Adam at count 1638) on
      data/tsp100's 2000 train and 200 val instances at the shipped
@@ -109,13 +110,20 @@ and prints no result line:
      state included) through each route that trains, `fast`, `sep`,
      `sep_fast` and `bf16`, on the same batches: data/tsp100's first 512
      train instances (16 steps at batch 32) and its 200 val instances, with
-     the launch counts reset just before each run and read just after (no
-     kernel launches); per route steps/s and training edges/s (the warm-up
+     the launch counts reset just before each run and read just after (2
+     rank-sums launches a layer a step in the sep routes, no other kernel);
+     per route steps/s and training edges/s (the warm-up
      steps left out), peak device memory, train and val loss (each within
      twice the checkpoint's) and their relative distance from the `fast`
      run's; then the `sep_fast`-trained weights served through K2 and K1 on
      tsp100 test instances 0-63 (n_iters 100, pm 20), launches counted, tours
-     checked, the mean gap beside phase 3's on the same instances.
+     checked, the mean gap beside phase 3's on the same instances; (e) the
+     rank-sums kernel (the sep routes' adjoint) on the arguments of its first
+     call in a sep train step on train instances 0-31, against its twin on
+     the CPU bit for bit and timed beside it and torch.scatter_add; then sep
+     and sep_fast steps with either adjoint, kernel or twin, in turns: two
+     steps from one state (the kernel's must give the same gradients) and
+     steps/s.
  16. data generation and regret labels (K1 with its k input): (a) K1 given a
      k per lane against its plain twin on the card, move for move: the warm
      forced-edge lanes of raw tsp100 instances 0-1 (all 4,950 edges, both
@@ -170,6 +178,22 @@ and prints no result line:
      run_fixed_kernel's (phase 14b's call); one make_dp_train_step step equal
      to train_step on the same batch in float64 (within 1e-6 of each leaf);
      then destroy_process_group.
+ 18. the repeat phase: each path twice in this process from the same inputs,
+     compared bit for bit: (a) predict_regret on tsp100 test instances 0-63
+     through auto (K2), pallas_mxu (K4), pallas_sep and pallas_sep_fast (K5),
+     fast and bf16, and on phase 7's first 16 n=500 instances through K3's
+     route, launches counted each time; (b) search_on_predictions (nearest
+     neighbour, then K1) on those predictions, the shared layout at n_iters
+     100 pm 20 and the global layout at n_iters 40 pm 20, and the per-move
+     engine at phase 14b's call against phase 14b's run: tours, costs, moves,
+     traces and work counters; (c) the label path (phase 16b's call) on raw
+     tsp100 instances 0-7; (d) phase 15d's epoch once more through each route:
+     every checkpoint array (parameters, BatchNorm running statistics, Adam
+     state) and the losses equal to phase 15d's, each route's arrays printed
+     as a sha256 so that two runs of the script compare too; then the second
+     sep_fast run's weights through K2 and K1 on instances 0-63: the same
+     tours and gaps.  Left out: the default 10 s path, whose deadline makes
+     the move count depend on the clock, and the four-card layer.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -222,6 +246,7 @@ TRAIN_WARMUP = 3  # train steps left out of the steps/s figure
 # Phase 15d: epoch 26 through each route that trains, on the first ROUTE_TRAIN_INST of
 # data/tsp100's 2,000 train instances (16 steps at batch 32) and its 200 val instances.
 TRAINED_ROUTES, ROUTE_TRAIN_INST = ("fast", "sep", "sep_fast", "bf16"), 512
+STEP_TURNS = 6  # phase 15e: timed steps of each turn, either adjoint of the sep routes
 # Phase 17c: a bf16 route's float32 train step on the card against the CPU.  A bf16
 # rounding is a step, so the bar is the CPU's own spread: the largest relative change
 # of its loss, and the largest per-leaf miss of its gradient, when the input features
@@ -243,6 +268,16 @@ TIE_ULPS = 4
 # bf16 routes' GATConv gradient, card against CPU in float64 (the CPU test's bar
 # against JAX); the n=500 chunked predictions' batch; the construction's samples.
 BF16_CARD_TOL, BF16_GRAD_TOL, BATCH_CHUNKED, N_CHUNKED, PNN_SAMPLES = 2e-3, 1e-4, 16, 16, 64
+# What the sorted-prefix routes trained at in phase 15d before their fixed-order adjoint
+# (NVIDIA H100 80GB HBM3, 700 W): printed beside this run's figures, not held.
+PARENT_SEP_STEPS = {"sep": 4.544, "sep_fast": 4.331}
+# Phase 18, the repeat phase: each path twice from the same inputs, compared bit for
+# bit.  The routes predicted on tsp100 instances 0-63 and the kernel each launches
+# (None: a plain route); the label path on raw tsp100 instances 0-7.
+REPEAT_ROUTES = (("auto", "gat_group"), ("pallas_mxu", "gat_group_mxu"),
+                 ("pallas_sep", "gat_sep"), ("pallas_sep_fast", "gat_sep"), ("fast", None),
+                 ("bf16", None))
+REPEAT_LABEL_INST = 8
 
 
 class SmokeFailure(Exception):
@@ -1264,7 +1299,7 @@ def phase14b_against_k1(ds, dev, guide64, init64):
         f"{fx['mean_gap']:.4f}%")
     require(k == len(fx["best_cost"]) and abs(gap - fx["mean_gap"]) <= 0.1,
             "per-move engine: mean gap over 0-63 differs from the JAX fixture by more than 0.1 pp")
-    return moves / search_s
+    return res
 
 
 def phase14c_wall_clock(model, ds, dev):
@@ -1533,50 +1568,98 @@ def phase15c_serve(dev, run_dir, ds):
         f"{PARENT_GAP100[0]:.4f}%)")
 
 
-def phase15d_train_routes(dev, ds, gap64, card):
-    """Epoch 26 resumed from the shipped checkpoint through each route that
-    trains, on the same batches; then the sep_fast-trained weights served
-    through K2 and K1 on tsp100 test instances 0-63."""
-    import numpy as np
-    import torch
-
-    from gnngls_tpu_torch import kernels
+def route_training_sets():
+    """Phase 15d's data: data/tsp100's first ROUTE_TRAIN_INST train instances
+    and its val instances."""
     from gnngls_tpu_torch.data.dataset import TSPDataset
-    from gnngls_tpu_torch.evaluate import evaluate
-    from gnngls_tpu_torch.models.convert import load_model
-    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
-    from gnngls_tpu_torch.train import loop
-    from gnngls_tpu_torch.utils import is_valid_tour
 
-    pj = json.loads((ROOT / "models/tsp100/params.json").read_text())
     scalers = ROOT / "data/tsp100/scalers.json"
     train, val = (TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz",
                                       ROOT / f"data/tsp100/{split}.txt", scalers_file=scalers)
                   for split in ("train", "val"))
-    train = head(train, ROUTE_TRAIN_INST)
-    ckpt = ROOT / "models/tsp100/checkpoint_best_val.npz"
-    with np.load(ckpt) as z:
+    return head(train, ROUTE_TRAIN_INST), val
+
+
+def train_route(route, train, val, run_dir, dev):
+    """Epoch 26 resumed from the shipped checkpoint (Adam state included)
+    through `route` into run_dir: (config, history, step stamps, peak device
+    bytes, kernel launches, every array of the final checkpoint: parameters,
+    BatchNorm running statistics, Adam state)."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.train import loop
+
+    pj = json.loads((ROOT / "models/tsp100/params.json").read_text())
+    cfg = loop.TrainConfig(**{**pj, "n_epochs": RESUME_EPOCH + 1, "gat_impl": route})
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stamps = []
+    _, history = loop.train_model(train, val, cfg, run_dir, verbose=False,
+                                  resume_from=ROOT / "models/tsp100/checkpoint_best_val.npz",
+                                  device=dev, step_times=stamps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    with np.load(run_dir / "checkpoint_final.npz") as z:
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    return cfg, history, stamps, peak, counts, arrays
+
+
+def serve_trained(model, sub, dev):
+    """evaluate with the trained weights through K2 and K1 (n_iters 100, pm
+    20), launches counted and tours checked."""
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import evaluate
+    from gnngls_tpu_torch.utils import is_valid_tour
+
+    kernels.reset_launch_counts()
+    out = evaluate(sub, model=model, guides=["regret_pred"], n_iters=N_ITERS,
+                   perturbation_moves=PM, batch_size=BATCH, device=dev)
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    want = {"gat_group": model.cfg.depth, "gls_whole": 1}
+    require(counts == want, f"trained weights served with launches {counts}, expected {want}")
+    for b in range(len(sub)):
+        require(is_valid_tour(sub.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
+    require(bool(np.isfinite(out["gaps"]).all()), "the served gaps are not finite")
+    return out, counts
+
+
+def phase15d_train_routes(dev, ds, gap64, card):
+    """Epoch 26 resumed from the shipped checkpoint through each route that
+    trains, on the same batches; then the sep_fast-trained weights served
+    through K2 and K1 on tsp100 test instances 0-63.  Returns each route's
+    (history, checkpoint arrays) and the served result, for phase 18, and the
+    `sep` run's rank-sums launches."""
+    import numpy as np
+
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+
+    train, val = route_training_sets()
+    with np.load(ROOT / "models/tsp100/checkpoint_best_val.npz") as z:
         shipped = json.loads(bytes(z["__meta__"].tobytes()).decode())
     E = train.features.shape[1]
-    runs = {}
+    runs, first, launched = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for route in TRAINED_ROUTES:
-            cfg = loop.TrainConfig(**{**pj, "n_epochs": RESUME_EPOCH + 1, "gat_impl": route})
+            cfg, history, stamps, peak, counts, arrays = train_route(
+                route, train, val, pathlib.Path(tmp) / route, dev)
             sizes = [min(cfg.batch_size, len(train) - s)
                      for s in range(0, len(train), cfg.batch_size)]
-            kernels.reset_launch_counts()
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            stamps = []
-            _, history = loop.train_model(train, val, cfg, pathlib.Path(tmp) / route,
-                                          verbose=False, resume_from=ckpt, device=dev,
-                                          step_times=stamps)
-            peak = torch.cuda.max_memory_allocated(dev)
-            counts = {k: v for k, v in kernels.launches.items() if v}
             require([r["epoch"] for r in history] == [RESUME_EPOCH] and len(stamps) == len(sizes),
                     f"{route}: trained epochs {[r['epoch'] for r in history]} in {len(stamps)} "
                     f"steps, expected [{RESUME_EPOCH}] in {len(sizes)}")
-            require(not counts, f"{route}: training launched kernels {counts}")
+            # the sorted-prefix routes' adjoint: two rank-sums launches a layer a step
+            depth = RegretGNNConfig(n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                                    depth_from_heads=cfg.depth_from_heads).depth
+            want = ({"rank_sums": 2 * len(sizes) * depth} if route in ("sep", "sep_fast")
+                    else {})
+            require(counts == want, f"{route}: training launched {counts}, expected {want}")
+            launched[route] = counts
             row_ = history[0]
             require(math.isfinite(row_["loss"]) and math.isfinite(row_["val_loss"])
                     and row_["loss"] <= 2 * shipped["loss"]
@@ -1586,36 +1669,128 @@ def phase15d_train_routes(dev, ds, gap64, card):
             span = stamps[-1] - stamps[TRAIN_WARMUP]
             runs[route] = (row_, (len(sizes) - TRAIN_WARMUP - 1) / span,
                            sum(sizes[TRAIN_WARMUP + 1:]) * E / span, peak)
+            first[route] = (history, arrays)
             if route == "sep_fast":
                 model = load_model(pathlib.Path(tmp) / route / "checkpoint_final.npz",
                                    RegretGNNConfig(), device=dev)
     log(f"phase 15d ({card}): epoch {RESUME_EPOCH} resumed from the shipped checkpoint through "
         f"each route on the first {len(train)} train instances ({len(sizes)} steps at batch "
         f"{cfg.batch_size}, n={train.n_nodes}) and {len(val)} val instances; steps "
-        f"{TRAIN_WARMUP + 1}-{len(sizes)} timed; no kernel launched; checkpoint train loss "
+        f"{TRAIN_WARMUP + 1}-{len(sizes)} timed; launches {launched}; checkpoint train loss "
         f"{shipped['loss']:.6f}, val loss {shipped['val_loss']:.6f}")
     base = runs["fast"][0]
     for route, (row_, steps_s, edges_s, peak) in runs.items():
-        log(f"  {route:8s} {steps_s:.4g} steps/s, {edges_s:.4g} training edges/s, peak device "
-            f"memory {peak} bytes ({peak / 2**30:.2f} GiB); train loss {row_['loss']:.6f} "
-            f"(rel {abs(row_['loss'] - base['loss']) / base['loss']:.3e} from fast's), val "
-            f"loss {row_['val_loss']:.6f} (rel "
+        before = (f" (before the fixed-order adjoint: {PARENT_SEP_STEPS[route]} steps/s)"
+                  if route in PARENT_SEP_STEPS else "")
+        log(f"  {route:8s} {steps_s:.4g} steps/s{before}, {edges_s:.4g} training edges/s, peak "
+            f"device memory {peak} bytes ({peak / 2**30:.2f} GiB); train loss "
+            f"{row_['loss']:.6f} (rel {abs(row_['loss'] - base['loss']) / base['loss']:.3e} from "
+            f"fast's), val loss {row_['val_loss']:.6f} (rel "
             f"{abs(row_['val_loss'] - base['val_loss']) / base['val_loss']:.3e})")
-    sub = head(ds, BATCH)
-    kernels.reset_launch_counts()
-    out = evaluate(sub, model=model, guides=["regret_pred"], n_iters=N_ITERS,
-                   perturbation_moves=PM, batch_size=BATCH, device=dev)
-    counts = {k: v for k, v in kernels.launches.items() if v}
-    want = {"gat_group": model.cfg.depth, "gls_whole": 1}
-    require(counts == want, f"sep_fast-trained weights served with launches {counts}, "
-            f"expected {want}")
-    for b in range(len(sub)):
-        require(is_valid_tour(sub.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
-    gaps = out["gaps"]
-    require(bool(np.isfinite(gaps).all()), "the served gaps are not finite")
-    log(f"  the sep_fast-trained weights through K2 and K1 on instances 0-{len(sub) - 1} "
-        f"({counts}; n_iters {N_ITERS}, pm {PM}): mean gap {gaps.mean():.4f}% (shipped "
+    out, counts = serve_trained(model, head(ds, BATCH), dev)
+    log(f"  the sep_fast-trained weights through K2 and K1 on instances 0-{BATCH - 1} "
+        f"({counts}; n_iters {N_ITERS}, pm {PM}): mean gap {out['gaps'].mean():.4f}% (shipped "
         f"weights, phase 3, on the same instances: {gap64:.4f}%)")
+    return first, out, launched["sep"].get("rank_sums", 0)
+
+
+def phase15e_rank_sums(model, dev, launches):
+    """The rank-sums kernel (the sorted-prefix routes' adjoint) at phase 15d's
+    shape: the first call of a `sep` train step on data/tsp100's train
+    instances 0-31, caught on its way in; against its twin on the CPU bit for
+    bit, twice; timed beside its twin and torch's scatter-add on the card.
+    Then whole `sep` and `sep_fast` steps on that batch with either adjoint,
+    the kernel or its twin on the card (autograd's own adjoint of the
+    gathers, which the route had before the kernel): whether two steps from
+    one state give the same gradients, and steps/s in turns."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.ops import gat_sep
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    train = TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz", ROOT / "data/tsp100/train.txt",
+                                scalers_file=ROOT / "data/tsp100/scalers.json")
+    batch = train.get_scaled_batch(np.arange(32))
+    x, y = (torch.as_tensor(batch[k], device=dev) for k in ("features", "regret"))
+    caught, kernel = [], gat_sep.rank_sums
+
+    def catch(idx, g, gh):
+        if not caught:
+            caught.append(tuple(t.detach().clone() for t in (idx, g, gh)))
+        return kernel(idx, g, gh)
+
+    gat_sep.rank_sums = catch
+    try:
+        m = copy.deepcopy(model)
+        train_step(m, make_optimizer(m), x, y, gat_impl="sep")
+    finally:
+        gat_sep.rank_sums = kernel
+    del m
+    idx, g, gh = caught[0]
+    got, again = gat_sep.rank_sums(idx, g, gh), gat_sep.rank_sums(idx, g, gh)
+    want = gat_sep.rank_sums_plain(*(t.cpu() for t in (idx, g, gh)))
+    for a, b, c in zip(got, again, want):
+        require(torch.equal(a.cpu(), c) and torch.equal(a, b),
+                "rank_sums: the kernel differs from its twin on the CPU or from itself")
+    ms = cuda_ms(lambda: gat_sep.rank_sums(idx, g, gh), reps=20, warmup=2)
+    plain = cuda_ms(lambda: gat_sep.rank_sums_plain(idx, g, gh), reps=20, warmup=2)
+    gz, ghz, idx_h = torch.zeros_like(g), torch.zeros_like(gh), idx[..., None].expand(gh.shape)
+    library = cuda_ms(lambda: (torch.scatter_add(gz, -2, idx, g),
+                               torch.scatter_add(ghz, -3, idx_h, gh)), reps=20, warmup=2)
+    K, H, F = gh.shape[-3:]
+    R = g.numel() // (K * H)
+    shared = (idx[..., None, :, :] == torch.arange(K, device=dev)[:, None, None]).sum(-2).amax()
+    ops = R * K * H * (F + 1)  # one add a target and column
+    nbytes = R * K * H * (8 + 2 * 4 * (F + 1))  # idx read, g and gh read, gs and gsh written
+    log(f"phase 15e: the rank-sums kernel at R={R} (B=32 x n=100) K={K} H={H} F={F} (at most "
+        f"{int(shared)} targets on a rank): equal to its twin on the CPU bit for bit, and to "
+        f"itself; {ms:.4f} ms/launch, the twin (torch's scatter-add, atomics) on the card "
+        f"{plain:.4f} ms, two torch.scatter_add calls {library:.4f} ms; {launches} launches "
+        f"in phase 15d's sep run")
+    del caught, got, again, want, gz, ghz
+    adjoints = {"kernel": kernel, "scatter-add": gat_sep.rank_sums_plain}
+
+    def steps(route, adjoint, n):
+        """n steps from the shipped state: (the first step's gradients, steps/s of
+        the rest after one more)."""
+        gat_sep.rank_sums = adjoints[adjoint]
+        try:
+            m = copy.deepcopy(model)
+            opt = make_optimizer(m)
+            train_step(m, opt, x, y, gat_impl=route)
+            grads = [q.grad.clone() for q in m.parameters()]
+            train_step(m, opt, x, y, gat_impl=route)
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            for _ in range(n):
+                train_step(m, opt, x, y, gat_impl=route)
+            torch.cuda.synchronize(dev)
+            return grads, n / (time.perf_counter() - t)
+        finally:
+            gat_sep.rank_sums = kernel
+
+    for route in ("sep", "sep_fast"):
+        runs = {a: [] for a in adjoints}
+        for adjoint in ("kernel", "scatter-add", "scatter-add", "kernel"):
+            runs[adjoint].append(steps(route, adjoint, STEP_TURNS))
+        differ = {a: [int(not torch.equal(p, q)) for p, q in zip(r[0][0], r[1][0])]
+                  for a, r in runs.items()}
+        require(not any(differ["kernel"]), f"{route}: two steps through the rank-sums kernel "
+                f"give other gradients")
+        log(f"  {route:8s} step (B=32): two from one state give {sum(differ['kernel'])} "
+            f"differing gradient leaves with the kernel, {sum(differ['scatter-add'])} of "
+            f"{len(differ['scatter-add'])} with torch's scatter-add; steps/s in turns: kernel "
+            f"{runs['kernel'][0][1]:.4g}, scatter-add {runs['scatter-add'][0][1]:.4g}, "
+            f"scatter-add {runs['scatter-add'][1][1]:.4g}, kernel {runs['kernel'][1][1]:.4g}")
+    return row("rank_sums", "gnngls_tpu_torch/csrc/rank_sums.cu",
+               "gnngls_tpu/ops/gat_sep.py:176", launches, 0.0, ms, plain, ops, nbytes,
+               f"R={R} K={K} H={H} F={F} f32; the adjoint of the sep routes' reads at rank, "
+               f"XLA's transpose of take_along_axis in the JAX package (no Pallas kernel); "
+               f"launches from phase 15d's sep run", library_ms=library)
 
 
 def tie(M):
@@ -2259,6 +2434,177 @@ def phase17g_sharded(ds, guide64, init64, mesh, dev, card):
 
 
 
+def same_bits(a, b) -> bool:
+    """Two arrays of the same dtype, shape and bytes."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def state_sha256(arrays) -> str:
+    """sha256 over a checkpoint's arrays, by key: names, dtypes, shapes and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for key in sorted(arrays):
+        a = np.ascontiguousarray(arrays[key])
+        h.update(f"{key}|{a.dtype}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def same_search(a, b, what):
+    """Two BatchResults with the same tours, costs, moves, traces and work
+    counters (the clock stamps left out)."""
+    for key in ("best_tours", "best_costs", "trace_costs", "trace_n", "chunk_moves",
+                "trace_moves", "work", "search_costs"):
+        x, y = getattr(a, key), getattr(b, key)
+        require((x is None and y is None) or (x is not None and y is not None
+                                              and same_bits(x, y)),
+                f"{what}: {key} differs between two runs")
+
+
+def phase18a_predictions(model, ds, data, dev):
+    """predict_regret twice through each route on tsp100 instances 0-63, and
+    through K3's route on phase 7's first 16 n=500 instances."""
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import predict_regret
+
+    sub100, sub500 = head(ds, BATCH), generated_dataset(data, N_CHUNKED)
+    cases = [(route, kernel, sub100, BATCH) for route, kernel in REPEAT_ROUTES]
+    cases.append(("auto", "gat_group_chunked", sub500, BATCH500))
+    preds = {}
+    for route, kernel, sub, batch in cases:
+        runs = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            runs.append(predict_regret(model, sub, batch_size=batch, device=dev, gat_impl=route))
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            want = {kernel: model.cfg.depth * -(-len(sub) // batch)} if kernel else {}
+            require(counts == want, f"{route} at n={sub.n_nodes}: launches {counts}, "
+                    f"expected {want}")
+        require(same_bits(*runs), f"{route} predictions at n={sub.n_nodes} differ between two "
+                f"runs")
+        log(f"  predict_regret {route} (launches {want or 'none'}) on {len(sub)} instances, "
+            f"n={sub.n_nodes}: equal bit for bit")
+        preds[route, sub.n_nodes] = runs[0]
+    return preds[("auto", ds.n_nodes)], preds[("auto", N500)]
+
+
+def phase18b_search(ds, data, preds100, preds500, per_move, guide64, init64, dev):
+    """K1 twice through search_on_predictions on 18a's predictions, shared
+    and global layout; the per-move engine once more at phase 14b's call."""
+    import numpy as np
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.evaluate import search_on_predictions
+    from gnngls_tpu_torch.search.batched import run_fixed
+
+    for what, preds, coords, n_iters in (
+            ("K1 shared layout", preds100, ds.coords[:BATCH], N_ITERS),
+            ("K1 global layout", preds500, np.asarray(data["coords"])[:N_CHUNKED], N_ITERS500)):
+        runs = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            runs.append(search_on_predictions(preds, coords, n_iters=n_iters,
+                                              perturbation_moves=PM, device=dev)[0])
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            require(counts == {"gls_whole": 1}, f"{what}: launches {counts}")
+        same_search(*runs, what)
+        log(f"  {what}: search_on_predictions on {len(coords)} instances, n={coords.shape[1]} "
+            f"(n_iters {n_iters}, pm {PM}): tours, costs, moves and traces equal "
+            f"({int(runs[0].chunk_moves[:, -1].sum())} moves)")
+    D = coords_to_distance_matrix(ds.coords[:len(guide64)]).astype(np.float32)
+    again = run_fixed(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM, device=dev)
+    same_search(per_move, again, "per-move engine")
+    log(f"  per-move engine: run_fixed on instances 0-{len(guide64) - 1} (n_iters {N_ITERS}, pm "
+        f"{PM}) equal to phase 14b's run ({int(again.trace_n.sum())} moves)")
+
+
+def phase18c_labels(dev, raw):
+    """The label path (phase 16b's call) twice on raw tsp100 instances 0-7."""
+    import numpy as np
+
+    from gnngls_tpu_torch.data.labels import warm_labels_chunked
+
+    runs = []
+    for _ in range(2):
+        data = {k: np.array(v[:REPEAT_LABEL_INST]) for k, v in raw.items() if k != "regret"}
+        with tempfile.TemporaryDirectory() as tmp:
+            runs.append(warm_labels_chunked(data, tmp, chunk=LABEL_CHUNK, warm_gls_iters=0,
+                                            dual_splice=True, perturbation_moves=LABEL_PM,
+                                            device=dev))
+    keys = sorted(k for k, v in runs[0].items() if isinstance(v, np.ndarray))
+    require(keys == sorted(k for k, v in runs[1].items() if isinstance(v, np.ndarray)),
+            "labels: the two runs return different arrays")
+    differ = [k for k in keys if not same_bits(runs[0][k], runs[1][k])]
+    require(not differ, f"labels: {differ} differ between two runs")
+    log(f"  labels: warm_labels_chunked on raw instances 0-{REPEAT_LABEL_INST - 1}: {keys} "
+        f"equal bit for bit")
+
+
+def phase18d_training(dev, ds, first, served):
+    """Phase 15d's epoch once more through each route: every checkpoint
+    array and the losses equal to the first run's; the sep_fast weights
+    served again, the same tours and gaps."""
+    import numpy as np
+
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+
+    train, val = route_training_sets()
+    hashes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route in TRAINED_ROUTES:
+            _, history, _, _, _, arrays = train_route(route, train, val,
+                                                      pathlib.Path(tmp) / route, dev)
+            history0, arrays0 = first[route]
+            require(sorted(arrays) == sorted(arrays0), f"{route}: checkpoint keys differ")
+            differ = [k for k in sorted(arrays0) if not same_bits(arrays0[k], arrays[k])]
+            require(not differ, f"{route}: {len(differ)} of {len(arrays0)} checkpoint arrays "
+                    f"differ between two runs, first {differ[:4]}")
+            keys = ("epoch", "loss", "val_loss", "lr")  # not the wall time
+            require([[r[k] for k in keys] for r in history] ==
+                    [[r[k] for k in keys] for r in history0],
+                    f"{route}: losses differ between two runs: {history0} vs {history}")
+            kinds = {k.split("::")[0] for k in arrays0}
+            hashes[route] = state_sha256(arrays0)
+            log(f"  {route:8s} {len(arrays0)} checkpoint arrays ({', '.join(sorted(kinds))}) "
+                f"and the losses (train {history0[0]['loss']!r}, val "
+                f"{history0[0]['val_loss']!r}) equal bit for bit; state sha256 "
+                f"{hashes[route]}")
+            if route == "sep_fast":
+                model = load_model(pathlib.Path(tmp) / route / "checkpoint_final.npz",
+                                   RegretGNNConfig(), device=dev)
+    out, _ = serve_trained(model, head(ds, BATCH), dev)
+    require(same_bits(out["best_tours"], served["best_tours"])
+            and same_bits(out["gaps"], served["gaps"]),
+            f"the second sep_fast run's weights serve other tours or gaps: mean gap "
+            f"{out['gaps'].mean()!r} vs {served['gaps'].mean()!r}")
+    log(f"  the second sep_fast run's weights through K2 and K1 on instances 0-{BATCH - 1}: the "
+        f"same tours and gaps, mean gap {out['gaps'].mean():.4f}%")
+    return hashes, float(out["gaps"].mean())
+
+
+def phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, served, dev, card):
+    log(f"phase 18 ({card}): each path twice in this process from the same inputs, compared "
+        f"bit for bit")
+    preds100, preds500 = phase18a_predictions(model, ds, data, dev)
+    phase18b_search(ds, data, preds100, preds500, per_move, guide64, init64, dev)
+    phase18c_labels(dev, raw)
+    hashes, gap = phase18d_training(dev, ds, first, served)
+    log("  left out: the default 10 s path (phase 14c), whose deadline makes the move count "
+        "depend on the host clock, and the four-card layer (this run has one card)")
+    log(f"phase 18: every path repeats bit for bit on {card}")
+    # two runs of the script repeat when these lines agree
+    log("phase 18 hashes: " + " ".join(f"{r}={h}" for r, h in hashes.items())
+        + f" sep_fast_served_gap={gap!r}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2335,7 +2681,7 @@ def main(argv=None) -> int:
                         launch_shape_plain_ms=fx_plain, launch_shape_bound_ms=fx_bound))
         log("phase 13: done")
         phase14a_per_move_devices(dev)
-        phase14b_against_k1(ds, dev, guide64, init64)
+        per_move = phase14b_against_k1(ds, dev, guide64, init64)
         phase14c_wall_clock(model, ds, dev)
         phase14d_first_improvement(ds, dev)
         phase14e_protocol(ds, dev)
@@ -2346,7 +2692,8 @@ def main(argv=None) -> int:
             run_dir = pathlib.Path(tmp) / "train"
             phase15b_resume(dev, run_dir)
             phase15c_serve(dev, run_dir, ds)
-        phase15d_train_routes(dev, ds, gap64, card)
+        first, served, rank_launches = phase15d_train_routes(dev, ds, gap64, card)
+        rows.append(phase15e_rank_sums(model, dev, rank_launches))
         log(f"phase 15: done on {card}")
         raw = raw_tsp100(LABEL_INST)
         phase16a_k_input(dev, raw)
@@ -2367,9 +2714,11 @@ def main(argv=None) -> int:
         phase17e_profiling(model, ds, guide64, init64, dev, card)
         mesh = phase17f_multi_device(model, ds, dev, card)
         phase17g_sharded(ds, guide64, init64, mesh, dev, card)
+        log(f"phase 17: done on {card}")
+        phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, served, dev,
+                       card)
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         require(not bad, f"imported modules the port must not use: {bad}")
-        log(f"phase 17: done on {card}")
         print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

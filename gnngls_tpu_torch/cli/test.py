@@ -71,9 +71,10 @@ def main(argv=None):
         if args.model_path.suffix == ".pt":
             from ..models import torch_import
 
-            model, _ = torch_import.load_checkpoint(args.model_path, cfg)
+            model, _ = torch_import.load_checkpoint(args.model_path, cfg,
+                                                      device=args.device)
         else:
-            model = load_model(args.model_path, cfg)
+            model = load_model(args.model_path, cfg, device=args.device)
 
     n_iters = args.n_iters
     if args.protocol_10s:

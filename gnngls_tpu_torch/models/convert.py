@@ -53,11 +53,14 @@ def state_from_jax_numpy(blobs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor
             if not (key.startswith("opt_state::") or key == "__meta__")}
 
 
-def load_model(path, cfg, device="cpu"):
-    """A `RegretGNN` with the weights of a gnngls_tpu npz checkpoint."""
+def load_model(path, cfg, device=None):
+    """A `RegretGNN` with the weights of a gnngls_tpu npz checkpoint, on
+    `device`: "cuda" unless the caller asks for "cpu" (`evaluate.resolve_device`)."""
+    from ..evaluate import resolve_device
     from ..train.checkpoint import load_checkpoint
     from .regret_gat import RegretGNN
 
+    device = resolve_device(device)
     blobs, _ = load_checkpoint(path)
     model = RegretGNN(cfg)
     model.load_state_dict(state_from_jax_numpy(blobs), strict=True)

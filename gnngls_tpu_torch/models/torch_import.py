@@ -64,10 +64,13 @@ def _depth(sd: Dict) -> int:
     return i
 
 
-def model_from_state_dict(sd: Dict, cfg, device="cpu"):
-    """A `RegretGNN` with the weights of a reference model state dict."""
+def model_from_state_dict(sd: Dict, cfg, device=None):
+    """A `RegretGNN` with the weights of a reference model state dict, on
+    `device`: "cuda" unless the caller asks for "cpu" (`evaluate.resolve_device`)."""
+    from ..evaluate import resolve_device
     from .regret_gat import RegretGNN
 
+    device = resolve_device(device)
     depth = _depth(sd)
     if depth != cfg.depth:
         raise ValueError(f"checkpoint has {depth} layers, config expects {cfg.depth} "
@@ -81,9 +84,10 @@ def model_from_state_dict(sd: Dict, cfg, device="cpu"):
     return model.to(device)
 
 
-def load_checkpoint(path, cfg, device="cpu"):
+def load_checkpoint(path, cfg, device=None):
     """(model, meta) from a reference .pt file: a `{model_state_dict, ...}`
-    checkpoint or a bare state dict; meta holds its epoch and losses."""
+    checkpoint or a bare state dict; meta holds its epoch and losses.  The
+    model is on `device`, as `model_from_state_dict` resolves it."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
     meta = {k: ckpt[k] for k in ("epoch", "loss", "val_loss") if k in ckpt}

@@ -18,12 +18,20 @@ dtype, summed in it); the projection stays f32.
 
 This is the `sep` / `sep_fast` route and a second reference for K5 in the
 tests; K5's plain twin is the mask form in ops/gat_group_sep.py.
+
+Training repeats bit for bit on the card: the reads at rank are one
+autograd Function (`_AtRank`), the same gathers forward, whose adjoint sums
+each rank's cotangents in increasing target order (`rank_sums`: the kernel
+csrc/rank_sums.cu on the card, torch's scatter-add on the CPU, which adds in
+that order).  Autograd's adjoint of a gather is that scatter-add, and on
+CUDA, where many targets share a rank, its atomics summed in no fixed order.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..core.graph import LineGraphTopology
 from .gat import LEAKY_SLOPE, GATParams, leaky, project, to_bf16, topo_index
 from .gat_group import merge_group_partials
@@ -37,6 +45,63 @@ def _scan_payload(x: torch.Tensor, suffix: bool = False) -> torch.Tensor:
     tri = torch.triu(ones) if suffix else torch.tril(ones)
     out = torch.matmul(tri, x.reshape(x.shape[:-3] + (K, H * F)))
     return out.reshape(x.shape)
+
+
+def rank_sums_plain(idx, g, gh):
+    """The twin of `rank_sums`: torch's scatter-add, autograd's adjoint of
+    the gathers at rank."""
+    return (torch.zeros_like(g).scatter_add_(-2, idx, g),
+            torch.zeros_like(gh).scatter_add_(-3, idx[..., None].expand(gh.shape), gh))
+
+
+def rank_sums(idx, g, gh):
+    """The cotangents of the reads at rank summed into their ranks: idx
+    (..., K, H) int64 in [0, K), g (..., K, H) and gh (..., K, H, F), f32 or
+    f64 -> (gs, gsh) of g's and gh's shapes, gs[.., k, h] the sum of g[.., i,
+    h] over the targets i with idx[.., i, h] == k in increasing i, gsh
+    likewise.
+
+    CPU tensors take the plain twin; CUDA tensors launch csrc/rank_sums.cu,
+    which adds in the twin's order, or raise."""
+    tensors = (idx, g, gh)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rank_sums_plain(idx, g, gh)
+    dev = g.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"rank_sums: all tensors must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if (idx.dtype != torch.int64 or g.dtype not in (torch.float32, torch.float64)
+            or gh.dtype != g.dtype or idx.shape != g.shape or gh.shape[:-1] != g.shape):
+        raise ValueError(f"rank_sums: expected idx (..., K, H) int64, g of its shape and gh "
+                         f"(..., K, H, F) of g's dtype, f32 or f64; got {idx.dtype} "
+                         f"{tuple(idx.shape)}, {g.dtype} {tuple(g.shape)}, {gh.dtype} "
+                         f"{tuple(gh.shape)}")
+    idx, g, gh = (t.contiguous() for t in tensors)
+    K, H, F = gh.shape[-3:]
+    gs, gsh = torch.empty_like(g), torch.empty_like(gh)
+    err = kernels.library().rank_sums_launch(
+        idx.data_ptr(), g.data_ptr(), gh.data_ptr(), g.numel() // (K * H), K, H, F,
+        int(g.dtype == torch.float64), gs.data_ptr(), gsh.data_ptr(), dev.index,
+        kernels.stream_of(g))
+    kernels.check(err, "rank_sums_launch")
+    kernels.launches["rank_sums"] += 1
+    return gs, gsh
+
+
+class _AtRank(torch.autograd.Function):
+    """The scans read at rank: (s.gather(-2, idx), sh.gather(-3, idx)) for a
+    sum s (..., K, H), a payload sh (..., K, H, F) and ranks idx (..., K, H),
+    many targets to a rank; the adjoint is `rank_sums`."""
+
+    @staticmethod
+    def forward(ctx, s, sh, idx):
+        ctx.save_for_backward(idx)
+        return s.gather(-2, idx), sh.gather(-3, idx[..., None].expand(sh.shape))
+
+    @staticmethod
+    def backward(ctx, g, gh):
+        (idx,) = ctx.saved_tensors
+        return *rank_sums(idx, g, gh), None
 
 
 def gat_conv_sep_partials(p: GATParams, topo: LineGraphTopology, x: torch.Tensor,
@@ -77,10 +142,10 @@ def gat_conv_sep_partials(p: GATParams, topo: LineGraphTopology, x: torch.Tensor
                              right=True).transpose(-1, -2)
     idx_lo, idx_hi = (pos - 1).clamp(min=0), pos.clamp(max=K - 1)
     nz_lo, nz_hi = (pos > 0).to(A.dtype), (pos < K).to(A.dtype)
-    sum_neg = PC.gather(-2, idx_lo) * nz_lo
-    sum_pos = SA.gather(-2, idx_hi) * nz_hi
-    num_neg = PCh.gather(-3, idx_lo[..., None].expand(PCh.shape)) * nz_lo[..., None]
-    num_pos = SAh.gather(-3, idx_hi[..., None].expand(SAh.shape)) * nz_hi[..., None]
+    sum_neg, num_neg = _AtRank.apply(PC, PCh, idx_lo)
+    sum_pos, num_pos = _AtRank.apply(SA, SAh, idx_hi)
+    sum_neg, num_neg = sum_neg * nz_lo, num_neg * nz_lo[..., None]
+    sum_pos, num_pos = sum_pos * nz_hi, num_pos * nz_hi[..., None]
 
     # the target's own term, taken out in the linear domain
     self_pos = (el_c + er_c) > 0

@@ -116,7 +116,7 @@ def test_checkpoint_reader_and_conversion():
     params, bn, _, meta = jck.load_checkpoint(path, params_like=p_like, bn_state_like=s_like)
     blobs, tmeta = load_checkpoint(path)
     assert tmeta == meta and not any(k.startswith("opt_state::") for k in blobs)
-    model = load_model(path, RegretGNNConfig())
+    model = load_model(path, RegretGNNConfig(), device="cpu")
     sd = model.state_dict()
     flat = jck._flatten(params)
     assert len(flat) + len(jck._flatten(bn)) == len(sd)

@@ -460,6 +460,63 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, dtype, tol):
         assert float((got[key] - want[key]).abs().max()) <= tol * scale, key
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R,K,H,F,p", [(400, 99, 8, 16, 0.5), (3, 499, 8, 16, 0.05),
+                                       (7, 10, 3, 5, 1.0), (2, 2000, 1, 8, 0.01)])
+def test_rank_sums_kernel_matches_its_twin(cuda, R, K, H, F, p, dtype):
+    """The sorted-prefix routes' adjoint (csrc/rank_sums.cu) against its twin
+    on the CPU bit for bit, twice: ranks drawn geometric(p) from 0 (p=1: every
+    target on rank 0), the last rows all on rank K-1; one launch a call."""
+    from gnngls_tpu_torch.ops.gat_sep import rank_sums, rank_sums_plain
+
+    rng = np.random.default_rng(R + K)
+    idx = np.minimum(rng.geometric(p, size=(R, K, H)) - 1, K - 1)
+    idx[-1] = K - 1
+    g, gh = rng.normal(size=(R, K, H)), rng.normal(size=(R, K, H, F)) * 1e3
+    args = [torch.as_tensor(a) for a in (idx, g.astype(np.float64), gh)]
+    args = [args[0]] + [t.to(dtype) for t in args[1:]]
+    before = kernels.launches["rank_sums"]
+    got = rank_sums(*(t.to(cuda) for t in args))
+    again = rank_sums(*(t.to(cuda) for t in args))
+    assert kernels.launches["rank_sums"] == before + 2
+    for a, b, c in zip(got, again, rank_sums_plain(*args)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("route", ["sep", "sep_fast"])
+def test_sep_train_steps_repeat_on_the_card(cuda, route):
+    """Two train steps through the route from the shipped checkpoint and a
+    fresh Adam, on tsp100 train instances 0-7 at full width: the loss, every
+    gradient leaf, every parameter after the step and the BatchNorm running
+    statistics equal bit for bit."""
+    import copy
+    import pathlib
+
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    model = load_model(root / "models/tsp100/checkpoint_best_val.npz", RegretGNNConfig(),
+                       device=cuda)
+    ds = TSPDataset.from_npz(root / "data/tsp100/instances.npz", root / "data/tsp100/train.txt",
+                             scalers_file=root / "data/tsp100/scalers.json")
+    batch = ds.get_scaled_batch(np.arange(8))
+    x, y = (torch.as_tensor(batch[k], device=cuda) for k in ("features", "regret"))
+
+    def step():
+        m = copy.deepcopy(model)
+        loss = train_step(m, make_optimizer(m), x, y, gat_impl=route)
+        return float(loss), [p.grad.cpu() for p in m.parameters()], \
+            [t.cpu() for t in m.state_dict().values()]
+
+    (l1, g1, s1), (l2, g2, s2) = step(), step()
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
 def test_resume_the_shipped_checkpoint_on_the_card(cuda, tmp_path):
     """A few steps of train_model at full width resumed from the shipped
     checkpoint: finite losses, epoch 26 at lr 1e-3 * 0.99**26, Adam's count

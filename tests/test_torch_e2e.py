@@ -99,7 +99,8 @@ def test_port_evaluate_matches_jax_evaluate():
     params, bn, cfg = _jax_model()
     want = jev.evaluate(_subset(jds), params=params, bn_state=bn, model_cfg=cfg,
                         guides=["regret_pred"], n_iters=N_ITERS, perturbation_moves=PM)
-    model = load_model(ROOT / "models/tsp20/checkpoint_best_val.npz", RegretGNNConfig())
+    model = load_model(ROOT / "models/tsp20/checkpoint_best_val.npz", RegretGNNConfig(),
+                       device="cpu")
     got = tev.evaluate(_subset(tds), model=model, guides=["regret_pred"], n_iters=N_ITERS,
                        perturbation_moves=PM, device="cpu")
     assert got["engine"] == "pallas" and got["device"] == "cpu" and got["gaps"].shape == (K,)
@@ -154,7 +155,7 @@ def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     from gnngls_tpu_torch.models import torch_import
 
     torch.save({"model_state_dict": torch_import.state_dict_from_params(
-        load_model(npz, RegretGNNConfig())), "epoch": 1}, model_dir / "best.pt")
+        load_model(npz, RegretGNNConfig(), device="cpu")), "epoch": 1}, model_dir / "best.pt")
     tcli.main([split, str(model_dir / "best.pt"), str(tmp_path / "runs_pt"), "regret_pred",
                "--n_iters", "2", "--perturbation_moves", "5", "--device", "cpu"])
     pd.testing.assert_frame_equal(frame("runs_pt")[["instance", "cost", "gap"]],

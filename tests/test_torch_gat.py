@@ -139,7 +139,7 @@ def test_shipped_model_taps_match_jax():
     y_j = np.asarray(jlinear(params.decision, h))
     y_full, _ = JM.forward(params, bn, topo, jnp.asarray(x), n_heads=8, gat_impl="fast")
     np.testing.assert_array_equal(y_j, np.asarray(y_full))
-    model = load_model(path, RegretGNNConfig())
+    model = load_model(path, RegretGNNConfig(), device="cpu")
     mine = []
     with torch.no_grad():
         y = model(torch.as_tensor(x), taps=mine).numpy()

@@ -296,7 +296,7 @@ def test_shipped_model_taps_match_jax(gat_impl):
         def conv(p, t, h, nh):
             return jpsep.gat_conv_pallas_sep(p, t, h, nh, interpret=True)
     taps, y_j = _jax_taps(params, bn, jnp.asarray(x), ds.n_nodes, conv)
-    model = load_model(path, RegretGNNConfig())
+    model = load_model(path, RegretGNNConfig(), device="cpu")
     mine = []
     with torch.no_grad():
         y = model(torch.as_tensor(x), taps=mine, gat_impl=gat_impl).numpy()

@@ -4,12 +4,14 @@
   helper of tests/test_torch_dist.py (tests/torch_dist_ranks.py) leaves jax,
   gnngls_tpu, pandas, networkx and matplotlib out of sys.modules (checked in
   a fresh interpreter, against the modules present before the imports).
-* Without a card the entry points raise unless device="cpu" is asked for.
-* What still raises NotImplementedError: training through the bf16 routes
-  (`bf16`, `sep_fast`), whose gradients cannot be held to JAX's.  Every GAT
-  route runs in eval mode, train mode runs on the plain f32 routes (`chunked`
-  among them), the kernel routes, which have no backward, refuse it, and the
-  evaluation modes and exact solvers ported since run.
+* Without a card the entry points raise unless device="cpu" is asked for:
+  evaluation, the whole-GLS kernel's entry point, the trainer and its
+  command line, and the model loaders.
+* What still raises: only the kernel routes in train mode (they have no
+  backward; ValueError naming the routes that train) and unknown `gat_impl`
+  names.  Every GAT route runs in eval mode, every plain route trains (the
+  bf16 routes `bf16` and `sep_fast` among them), and the evaluation modes and
+  exact solvers ported since run.
 """
 
 import pathlib
@@ -25,6 +27,8 @@ from gnngls_tpu_torch.data import dataset as tds
 from gnngls_tpu_torch.data import generate as tgen
 from gnngls_tpu_torch.data import native_oracle as tnative
 from gnngls_tpu_torch.cli import train as tcli_train
+from gnngls_tpu_torch.models import convert as tconvert
+from gnngls_tpu_torch.models import torch_import as ttorch_import
 from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig, gat_conv_for
 from gnngls_tpu_torch.search import batched as tbatched
 from gnngls_tpu_torch.train import loop as tloop
@@ -75,7 +79,7 @@ def _tiny():
     return ds
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked():
+def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -96,6 +100,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli_train.main([str(ROOT / "data" / "tsp10"), str(ROOT / "missing_run_dir")])
     assert not (ROOT / "missing_run_dir").exists()
+    # the model loaders: npz (either package's), a reference .pt, a state dict
+    npz, cfg = ROOT / "models" / "tsp20" / "checkpoint_best_val.npz", RegretGNNConfig()
+    model = tconvert.load_model(npz, cfg, device="cpu")
+    sd = ttorch_import.state_dict_from_params(model)
+    torch.save(sd, tmp_path / "m.pt")
+    for load in (lambda **kw: tconvert.load_model(npz, cfg, **kw),
+                 lambda **kw: ttorch_import.load_checkpoint(tmp_path / "m.pt", cfg, **kw)[0],
+                 lambda **kw: ttorch_import.model_from_state_dict(sd, cfg, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load()
+        assert all(t.device.type == "cpu" for t in load(device="cpu").state_dict().values())
 
 
 def test_unported_modes_raise():

@@ -147,7 +147,7 @@ def test_predict_regret_n120_matches_jax():
     want = jev.predict_regret(params, bn, cfg,
                               jds.TSPDataset.from_arrays(d, scalers=jload_scalers(SCALERS)),
                               gat_impl="pallas")
-    got = tev.predict_regret(load_model(CHECKPOINT, RegretGNNConfig()),
+    got = tev.predict_regret(load_model(CHECKPOINT, RegretGNNConfig(), device="cpu"),
                              TSPDataset.from_arrays(d, scalers=load_scalers(SCALERS)),
                              device="cpu")
     assert got.shape == want.shape == (1, 120 * 119 // 2)
@@ -176,7 +176,8 @@ def test_model_taps_n120_match_jax():
     taps, y_j = taps_of(jnp.asarray(x))
     mine = []
     with torch.no_grad():
-        y = load_model(CHECKPOINT, RegretGNNConfig())(torch.as_tensor(x), taps=mine).numpy()
+        y = load_model(CHECKPOINT, RegretGNNConfig(), device="cpu")(torch.as_tensor(x),
+                                                                     taps=mine).numpy()
     assert len(mine) == len(taps) == 9
     for i, (a, b) in enumerate(zip(mine, taps)):
         err = float(np.abs(a.numpy() - np.asarray(b)).max())

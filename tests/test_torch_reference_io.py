@@ -164,7 +164,7 @@ def test_pt_checkpoint_round_trip(tmp_path, wrapped):
     path = tmp_path / "checkpoint_best_val.pt"
     torch.save({"epoch": 7, "model_state_dict": sd, "loss": 0.5, "val_loss": 0.25}
                if wrapped else sd, path)
-    model, meta = tti.load_checkpoint(path, RegretGNNConfig())
+    model, meta = tti.load_checkpoint(path, RegretGNNConfig(), device="cpu")
     assert meta == ({"epoch": 7, "loss": 0.5, "val_loss": 0.25} if wrapped else {})
 
     root = ROOT / "data" / "tsp20"
@@ -173,7 +173,7 @@ def test_pt_checkpoint_round_trip(tmp_path, wrapped):
     x = ds.get_scaled_batch([0, 1])["features"]
     mine = _port_taps(model, x)
     theirs = _jax_taps(params, bn, cfg, x)
-    npz = _port_taps(load_model(CKPT, RegretGNNConfig()), x)
+    npz = _port_taps(load_model(CKPT, RegretGNNConfig(), device="cpu"), x)
     assert len(mine) == len(theirs) == len(npz) == cfg.depth + 2
     for i, (a, b, c) in enumerate(zip(mine, theirs, npz)):
         assert float(np.abs(a - b).max()) <= TAP_TOL, f"tap {i} vs JAX"
@@ -183,7 +183,7 @@ def test_pt_checkpoint_round_trip(tmp_path, wrapped):
 def test_pt_export_matches_jax_export(tmp_path):
     params, bn, _ = _jax_params()
     theirs = jti.state_dict_from_params(params, bn)
-    model = load_model(CKPT, RegretGNNConfig())
+    model = load_model(CKPT, RegretGNNConfig(), device="cpu")
     mine = tti.state_dict_from_params(model)
     assert mine.keys() == theirs.keys()
     for key in mine:
@@ -191,8 +191,9 @@ def test_pt_export_matches_jax_export(tmp_path):
         torch.testing.assert_close(mine[key], theirs[key].to(mine[key].dtype), rtol=0,
                                    atol=0, msg=key)
     torch.save(mine, tmp_path / "m.pt")
-    back, _ = tti.load_checkpoint(tmp_path / "m.pt", RegretGNNConfig())
+    back, _ = tti.load_checkpoint(tmp_path / "m.pt", RegretGNNConfig(), device="cpu")
     for (ka, a), (kb, b) in zip(model.state_dict().items(), back.state_dict().items()):
         assert ka == kb and torch.equal(a, b), ka
     with pytest.raises(ValueError, match="layers"):
-        tti.load_checkpoint(tmp_path / "m.pt", RegretGNNConfig(n_heads=4))
+        tti.load_checkpoint(tmp_path / "m.pt", RegretGNNConfig(n_heads=4),
+                            device="cpu")

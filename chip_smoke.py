@@ -194,6 +194,18 @@ and prints no result line:
      sep_fast run's weights through K2 and K1 on instances 0-63: the same
      tours and gaps.  Left out: the default 10 s path, whose deadline makes
      the move count depend on the clock, and the four-card layer.
+ 19. K1 and its callers past 1024 cities, and the caller's precision: (a) K1's
+     global layout against its twin on the card, bit for bit, at n=1100 (two
+     guides cycled) and n=2100 (k given); (b) each caller of K1
+     (gls_oracle, gls_fixed_edge_costs, warm_fixed_edge_costs_batch at the
+     MAX_D2_BYTES lane cap, make_sharded_gls under a new one-rank NCCL
+     group, search_on_predictions) on seeded n=1100 instances through K1:
+     launches, valid tours, seconds and peak memory; then gls_oracle on 512
+     of them (the generator's default chunk), cut into launches by
+     MAX_D2_BYTES; (c) a caller at set_float32_matmul_precision("high"),
+     where a plain product moves (TF32), and at "highest": a tsp100 forward through
+     K2, predict_regret on 64 instances and one `sep` train step give the
+     same bits, and the caller's setting reads back after each call.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -278,6 +290,11 @@ REPEAT_ROUTES = (("auto", "gat_group"), ("pallas_mxu", "gat_group_mxu"),
                  ("pallas_sep", "gat_sep"), ("pallas_sep_fast", "gat_sep"), ("fast", None),
                  ("bf16", None))
 REPEAT_LABEL_INST = 8
+# Phase 19: K1 and its callers past 1024 cities, and the caller's precision.  (a) K1
+# against its twin at n = BEYOND_N and BEYOND_N2; (b) each caller on BEYOND_INST seeded
+# instances at n = BEYOND_N, and the GLS oracle on ORACLE_CHUNK of them (the default
+# chunk of data/generate.generate_instances_sharded); (c) ROUTE_INST tsp100 instances.
+BEYOND_N, BEYOND_N2, BEYOND_INST, ORACLE_CHUNK, ROUTE_INST = 1100, 2100, 2, 512, 8
 
 
 class SmokeFailure(Exception):
@@ -2605,6 +2622,336 @@ def phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, serve
         + f" sep_fast_served_gap={gap!r}")
 
 
+def valid_tours(tours, n) -> bool:
+    import numpy as np
+
+    tours = np.asarray(tours).reshape(-1, n + 1)
+    return bool((tours[:, 0] == 0).all() and (tours[:, -1] == 0).all()
+                and (np.sort(tours[:, :-1], axis=1) == np.arange(n)).all())
+
+
+def beyond_distances(B, seed, dev):
+    """B seeded uniform instances at n = BEYOND_N: their (B, n, n) f32
+    Euclidean distances, computed on the card 32 instances at a time, and
+    their coordinates."""
+    import numpy as np
+    import torch
+
+    coords = np.random.default_rng(seed).random((B, BEYOND_N, 2)).astype(np.float32)
+    D = np.empty((B, BEYOND_N, BEYOND_N), dtype=np.float32)
+    for s in range(0, B, 32):
+        c = torch.as_tensor(coords[s:s + 32], device=dev)
+        d = c[:, :, None] - c[:, None]
+        D[s:s + 32] = torch.sqrt((d * d).sum(-1)).cpu().numpy()
+    return D, coords
+
+
+def phase19a_past_1024(dev, card):
+    """K1's global layout past the block's 1024 threads against its twin on
+    the card, bit for bit: n = BEYOND_N with two guides cycled, and n =
+    BEYOND_N2 (past the tour cost's stack of five levels that served n <=
+    1024) with k given."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
+    from gnngls_tpu_torch.search.gls_whole import gls_whole
+    from gnngls_tpu_torch.search.local_search import gls_fixed_plain
+
+    for n, B, G, iters, with_k in ((BEYOND_N, 2, 2, 2, False), (BEYOND_N2, 1, 1, 1, True)):
+        rng = np.random.default_rng(n)
+        D = torch.as_tensor(coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32)),
+                            device=dev)
+        R = torch.as_tensor(rng.random((B, n, n)), dtype=torch.float32, device=dev)
+        guides = torch.stack([D, R + R.transpose(1, 2)][:G], 1).contiguous()
+        T = nearest_neighbor_batch(D)
+        k = torch.full((B,), 0.02, device=dev) if with_k else None
+        kw = dict(n_iters=iters, perturbation_moves=PM, k=k)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t = time.time()
+        got = gls_whole(D, guides, T, **kw)
+        torch.cuda.synchronize(dev)
+        k1_s = time.time() - t
+        require(kernels.launches["gls_whole"] == 1, f"K1 n={n}: {dict(kernels.launches)}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        want = gls_fixed_plain(D, guides, T, **kw)
+        torch.cuda.synchronize(dev)
+        twin_s, peak = time.time() - t, torch.cuda.max_memory_allocated(dev)
+        for key in got._fields:
+            require(torch.equal(getattr(got, key), getattr(want, key)),
+                    f"K1 n={n}: {key} differs from the twin's")
+        require(valid_tours(got.best_tours.cpu(), n), f"K1 n={n}: invalid tours")
+        log(f"  K1 n={n} B={B} G={G} n_iters={iters} pm={PM}{' k given' if with_k else ''}: "
+            f"global layout == plain twin on the card, bit for bit (moves "
+            f"{got.moves.tolist()}); K1 {k1_s:.3f} s, twin {twin_s:.3f} s (peak "
+            f"{peak / 1e9:.3f} GB)")
+    log(f"phase 19a ({card}): K1 past 1024 cities matches its twin")
+
+
+def phase19b_callers(dev, card):
+    """Each caller of K1 at n = BEYOND_N through K1 (at least one launch each,
+    valid tours): the GLS oracle on BEYOND_INST instances, the cold label
+    oracle on two edges, one warm label launch at the MAX_D2_BYTES lane cap
+    (a local search and one GLS iteration a lane), the instance-sharded
+    search under a new one-rank NCCL group and the search on given
+    predictions; then the GLS oracle at the generator's default chunk
+    (ORACLE_CHUNK instances), cut into launches by MAX_D2_BYTES.  Seconds
+    and peak device memory for the oracle and the labels."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.core.graph import build_topology
+    from gnngls_tpu_torch.data import solvers
+    from gnngls_tpu_torch.evaluate import search_on_predictions
+    from gnngls_tpu_torch.parallel import mesh as pm
+    from gnngls_tpu_torch.parallel import multihost
+    from gnngls_tpu_torch.parallel.eval_shard import make_sharded_gls
+    from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
+
+    n = BEYOND_N
+    D, coords = beyond_distances(BEYOND_INST, 19, dev)
+    nn = nearest_neighbor_batch(torch.as_tensor(D)).numpy()
+    nn_cost = D[np.arange(BEYOND_INST)[:, None], nn[:, :-1], nn[:, 1:]].sum(-1)
+
+    def measured(what, call, launches=1):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        out = call()
+        torch.cuda.synchronize(dev)
+        secs, peak = time.time() - t, torch.cuda.max_memory_allocated(dev)
+        k1 = kernels.launches["gls_whole"]
+        require(k1 == launches, f"{what} at n={n}: {dict(kernels.launches)}")
+        return out, secs, peak
+
+    (tours, costs), secs, peak = measured(
+        "gls_oracle", lambda: solvers.gls_oracle(D, n_iters=1, device=dev))
+    require(valid_tours(tours, n) and bool(np.isfinite(costs).all())
+            and bool((costs < nn_cost).all()),
+            f"gls_oracle at n={n}: invalid tours or no gain on nearest neighbour")
+    log(f"  gls_oracle on {BEYOND_INST} instances at n={n} (n_iters 1, pm 30), one K1 launch: "
+        f"{secs:.3f} s, peak {peak / 1e9:.3f} GB, valid tours, costs "
+        f"{costs.round(4).tolist()} against nearest neighbour's {nn_cost.round(4).tolist()}")
+    edges = build_topology(n).edges[::300000][:2]
+    (_, used), secs, _ = measured("gls_fixed_edge_costs", lambda: solvers.gls_fixed_edge_costs(
+        D[0].astype(np.float64), edges, n_iters=1, device=dev))
+    require(bool(used.all()), f"gls_fixed_edge_costs at n={n}: a lane without its edge")
+    log(f"  gls_fixed_edge_costs at n={n} on 2 edges (n_iters 1, pm 30), one K1 launch: "
+        f"{secs:.3f} s, each tour through its edge")
+    width = solvers.MAX_D2_BYTES // (4 * n * n)
+    us, vs = np.triu_indices(n, k=1)
+    pick = np.linspace(0, len(us) - 1, width).astype(np.int64)
+    edges = np.stack([us[pick], vs[pick]], axis=1)
+    (lane_costs, used, lane_tours), secs, peak = measured(
+        "warm_fixed_edge_costs_batch", lambda: solvers.warm_fixed_edge_costs_batch(
+            D[:1].astype(np.float64), edges, tours[:1], n_gls_iters=1, dual_splice=False,
+            device=dev))
+    require(valid_tours(lane_tours, n) and bool(used.all())
+            and bool(np.isfinite(lane_costs).all()),
+            f"labels at n={n}: invalid lane tours or a lane without its edge")
+    log(f"  warm_fixed_edge_costs_batch at n={n} (n_gls_iters 1, pm 20): {width} lanes in one "
+        f"K1 launch at MAX_D2_BYTES ({solvers.MAX_D2_BYTES / 2**30:.0f} GiB of reduced "
+        f"matrices): {secs:.3f} s, peak {peak / 1e9:.3f} GB, every lane tour valid and "
+        f"holding its edge")
+    multihost.initialize(coordinator_address=f"localhost:{free_port()}", num_processes=1,
+                         process_id=0)
+    try:
+        sharded = make_sharded_gls(pm.make_mesh(), n_iters=1, perturbation_moves=PM)
+        (sh_tours, _, _), secs, _ = measured("make_sharded_gls",
+                                             lambda: sharded(D, D[:, None], nn))
+    finally:
+        dist.destroy_process_group()
+    require(valid_tours(sh_tours, n), f"make_sharded_gls at n={n}: invalid tours")
+    preds = np.random.default_rng(20).random((BEYOND_INST, n * (n - 1) // 2)).astype(np.float32)
+    (res, _), secs2, _ = measured("search_on_predictions", lambda: search_on_predictions(
+        preds, coords, n_iters=1, perturbation_moves=PM, device=dev))
+    require(valid_tours(res.best_tours, n), f"search_on_predictions at n={n}: invalid tours")
+    log(f"  make_sharded_gls ({secs:.3f} s) and search_on_predictions ({secs2:.3f} s) on "
+        f"{BEYOND_INST} instances at n={n} (n_iters 1, pm {PM}), one K1 launch each: valid "
+        f"tours")
+    D, _ = beyond_distances(ORACLE_CHUNK, 21, dev)
+    cut = -(-ORACLE_CHUNK // width)
+    (tours, costs), secs, peak = measured(
+        "gls_oracle", lambda: solvers.gls_oracle(D, n_iters=1, device=dev), launches=cut)
+    require(valid_tours(tours, n) and bool(np.isfinite(costs).all()),
+            f"gls_oracle on {ORACLE_CHUNK} instances at n={n}: invalid tours")
+    log(f"  gls_oracle on {ORACLE_CHUNK} instances at n={n} (the generator's default chunk; "
+        f"n_iters 1, pm 30): {cut} K1 launches of at most {width} lanes, {secs:.3f} s, peak "
+        f"{peak / 1e9:.3f} GB, valid tours")
+    log(f"phase 19b ({card}): every caller of K1 runs it past 1024 cities")
+
+
+def phase19c_precision(model, ds, dev, card):
+    """A caller at "high" (TF32 in cuBLAS) and at "highest": a tsp100 forward
+    through K2, predict_regret and one `sep` train step give the same bits,
+    and the caller's setting reads back after each call."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.evaluate import predict_regret
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    model.eval()
+    batch = ds.get_scaled_batch(np.arange(ROUTE_INST))
+    x, y = (torch.as_tensor(batch[k], device=dev) for k in ("features", "regret"))
+    sub = head(ds, BATCH)
+    a = torch.randn((1024, 1024), device=dev, generator=torch.Generator(device=dev).manual_seed(19))
+
+    def each(setting):
+        torch.set_float32_matmul_precision(setting)
+        out = {"a caller's product": a @ a}
+        with torch.no_grad():
+            out["forward (K2)"] = model(x)
+        require(torch.get_float32_matmul_precision() == setting, "forward: precision moved")
+        out["predict_regret"] = torch.as_tensor(predict_regret(model, sub, device=dev))
+        require(torch.get_float32_matmul_precision() == setting, "predict_regret: precision moved")
+        m = copy.deepcopy(model)
+        out["sep step loss"] = train_step(m, make_optimizer(m), x, y, gat_impl="sep")
+        require(torch.get_float32_matmul_precision() == setting, "train_step: precision moved")
+        out.update({f"grad {k}": p.grad for k, p in m.named_parameters()})
+        out.update({f"after the step {k}": t for k, t in m.state_dict().items()})
+        return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+    kernels.reset_launch_counts()
+    try:
+        highest, high = each("highest"), each("high")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    launches = kernels.launches["gat_group"]
+    require(launches >= 4, f"K2 launches {launches}")
+    tf32 = float(np.abs(high["a caller's product"] - highest["a caller's product"]).max())
+    require(tf32 > 0, "the caller's 'high' left a plain product unchanged")
+    moved = [k for k in highest if k != "a caller's product" and not same_bits(high[k],
+                                                                                 highest[k])]
+    require(not moved, f"outputs moved under the caller's 'high': {moved}")
+    log(f"phase 19c ({card}): at the caller's 'high' a plain 1024x1024 product moves by "
+        f"{tf32:.3e} (TF32); the forward through K2 ({launches} K2 launches in all), "
+        f"predict_regret on {BATCH} instances and one sep train step ({len(highest) - 1} "
+        f"arrays: outputs, gradients, weights, statistics) equal those at 'highest' bit for "
+        f"bit, and the caller's setting reads back after each call")
+
+
+def phase19(model, ds, dev, card):
+    t = time.time()
+    phase19a_past_1024(dev, card)
+    phase19b_callers(dev, card)
+    phase19c_precision(model, ds, dev, card)
+    log(f"phase 19: done in {time.time() - t:.1f} s on {card}")
+
+
+def drive(k4_against) -> int:
+    """Every phase in order, then the `kernels` line and the result line."""
+    import torch
+
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.models.convert import load_model
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+
+    dev = torch.device("cuda")
+    card = phase0_build()
+    ds = TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz",
+                             ROOT / "data/tsp100/test.txt",
+                             scalers_file=ROOT / "data/tsp100/scalers.json")
+    model = load_model(ROOT / "models/tsp100/checkpoint_best_val.npz",
+                       RegretGNNConfig(), device=dev)
+    log(f"loaded {len(ds)} tsp100 test instances and the checkpoint")
+    k2_err = phase1_gat(model, ds, dev)
+    k1_err = phase2_gls(dev)
+    out, counts = phase3_main(model, ds, dev)
+    rows = phase4_timings(model, ds, dev, out, counts, k2_err, k1_err)
+    log("phase 4: the tsp100 path's kernels timed")
+    k2_preds = predictions(out, ds.n_nodes)
+    guide64, init64 = out["guide_stack"][:BATCH], out["init_tours"][:BATCH]
+    gap3, gap64 = float(out["gaps"].mean()), float(out["gaps"][:BATCH].mean())
+    del out
+    k3_err = phase5_gat_chunked(model, dev)
+    phase6_gls_global(dev)
+    data, out500, counts500 = phase7_tsp500(model, dev)
+    phase8_fixture200(model, dev)
+    rows += phase9_timings500(model, data, out500, counts500, k3_err, dev)
+    log("phase 9: the tsp500 path's kernels timed")
+    k4_err, k4_ms, k4_plain, k2_same, k4_ops, k4_bytes, k4_shape = phase10_mxu(
+        model, ds, dev, k4_against)
+    counts11 = phase11_mxu_path(model, ds, dev, k2_preds)
+    k5_err, k5_timed, k5_shape, k5_fx = phase12_sep(model, data, dev)
+    counts13, counts200 = phase13_sep_path(model, data, out500, dev)
+    rows.append(row("gat_group_mxu", "gnngls_tpu_torch/csrc/gat_group_mxu.cu",
+                    "gnngls_tpu/ops/pallas_gat.py:143", counts11.get("gat_group_mxu", 0),
+                    k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape,
+                    k2_same_shape_ms=k2_same))
+    ms, plain, ops, nbytes, k5_plain = k5_timed[True]
+    rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sorted.cu",
+                    "gnngls_tpu/ops/pallas_gat_sep.py:48", counts13.get("gat_sep", 0),
+                    k5_err[True], ms, plain, ops, nbytes,
+                    f"bf16 payloads, {k5_shape}; launches from phase 13's n=500 path",
+                    k5_arithmetic_plain_ms=k5_plain))
+    ms, plain, ops, nbytes, k5_plain = k5_timed[False]
+    fx_ms, fx_plain, fx_bound, fx_shape = k5_fx
+    rows.append(row("gat_sep_f32", "gnngls_tpu_torch/csrc/gat_sorted.cu",
+                    "gnngls_tpu/ops/pallas_gat_sep.py:48", counts200.get("gat_sep", 0),
+                    k5_err[False], ms, plain, ops, nbytes,
+                    f"f32 payloads, {k5_shape}; launches from phase 13's pallas_sep "
+                    f"prediction of the n=200 fixture ({fx_shape}, timed there too)",
+                    k5_arithmetic_plain_ms=k5_plain, launch_shape_ms=fx_ms,
+                    launch_shape_plain_ms=fx_plain, launch_shape_bound_ms=fx_bound))
+    log("phase 13: done")
+    phase14a_per_move_devices(dev)
+    per_move = phase14b_against_k1(ds, dev, guide64, init64)
+    phase14c_wall_clock(model, ds, dev)
+    phase14d_first_improvement(ds, dev)
+    phase14e_protocol(ds, dev)
+    phase14f_pt_checkpoint(model, ds, dev)
+    log("phase 14: done")
+    phase15a_train_step(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = pathlib.Path(tmp) / "train"
+        phase15b_resume(dev, run_dir)
+        phase15c_serve(dev, run_dir, ds)
+    first, served, rank_launches = phase15d_train_routes(dev, ds, gap64, card)
+    rows.append(phase15e_rank_sums(model, dev, rank_launches))
+    log(f"phase 15: done on {card}")
+    raw = raw_tsp100(LABEL_INST)
+    phase16a_k_input(dev, raw)
+    label_launches, _ = phase16b_labels(dev, raw)
+    B, err, ms, plain, ops, nbytes, build_ms = phase16b_timing(dev, raw)
+    rows.append(row("gls_whole_labels", "gnngls_tpu_torch/csrc/gls_whole.cu",
+                    "gnngls_tpu/search/pallas_gls.py:257", label_launches, err, ms, plain,
+                    ops, nbytes, f"labels: shared layout, k given, B={B} n=100, the guide "
+                    f"D2 itself, n_iters=0; launches from phase 16b's 64 instances",
+                    reduced_matrices_ms=build_ms))
+    phase16c_clis(dev, model)
+    phase16d_native()
+    log(f"phase 16: done on {card}")
+    phase17a_chunked(model, data, out500, dev, card)
+    phase17b_bf16(model, ds, k2_preds, gap3, dev, card)
+    phase17c_train_routes(dev, card)
+    phase17d_construction(ds, k2_preds, dev, card)
+    phase17e_profiling(model, ds, guide64, init64, dev, card)
+    mesh = phase17f_multi_device(model, ds, dev, card)
+    phase17g_sharded(ds, guide64, init64, mesh, dev, card)
+    log(f"phase 17: done on {card}")
+    phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, served, dev,
+                   card)
+    phase19(model, ds, dev, card)
+    bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+    require(not bad, f"imported modules the port must not use: {bad}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2627,103 +2974,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from gnngls_tpu_torch.data.dataset import TSPDataset
-        from gnngls_tpu_torch.models.convert import load_model
-        from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, exact_f32_matmuls
+        from gnngls_tpu_torch.models.regret_gat import exact_f32_matmuls
 
-        exact_f32_matmuls()
-        dev = torch.device("cuda")
-        card = phase0_build()
-        ds = TSPDataset.from_npz(ROOT / "data/tsp100/instances.npz",
-                                 ROOT / "data/tsp100/test.txt",
-                                 scalers_file=ROOT / "data/tsp100/scalers.json")
-        model = load_model(ROOT / "models/tsp100/checkpoint_best_val.npz",
-                           RegretGNNConfig(), device=dev)
-        log(f"loaded {len(ds)} tsp100 test instances and the checkpoint")
-        k2_err = phase1_gat(model, ds, dev)
-        k1_err = phase2_gls(dev)
-        out, counts = phase3_main(model, ds, dev)
-        rows = phase4_timings(model, ds, dev, out, counts, k2_err, k1_err)
-        log("phase 4: the tsp100 path's kernels timed")
-        k2_preds = predictions(out, ds.n_nodes)
-        guide64, init64 = out["guide_stack"][:BATCH], out["init_tours"][:BATCH]
-        gap3, gap64 = float(out["gaps"].mean()), float(out["gaps"][:BATCH].mean())
-        del out
-        k3_err = phase5_gat_chunked(model, dev)
-        phase6_gls_global(dev)
-        data, out500, counts500 = phase7_tsp500(model, dev)
-        phase8_fixture200(model, dev)
-        rows += phase9_timings500(model, data, out500, counts500, k3_err, dev)
-        log("phase 9: the tsp500 path's kernels timed")
-        k4_err, k4_ms, k4_plain, k2_same, k4_ops, k4_bytes, k4_shape = phase10_mxu(
-            model, ds, dev, k4_against)
-        counts11 = phase11_mxu_path(model, ds, dev, k2_preds)
-        k5_err, k5_timed, k5_shape, k5_fx = phase12_sep(model, data, dev)
-        counts13, counts200 = phase13_sep_path(model, data, out500, dev)
-        rows.append(row("gat_group_mxu", "gnngls_tpu_torch/csrc/gat_group_mxu.cu",
-                        "gnngls_tpu/ops/pallas_gat.py:143", counts11.get("gat_group_mxu", 0),
-                        k4_err, k4_ms, k4_plain, k4_ops, k4_bytes, k4_shape,
-                        k2_same_shape_ms=k2_same))
-        ms, plain, ops, nbytes, k5_plain = k5_timed[True]
-        rows.append(row("gat_sep", "gnngls_tpu_torch/csrc/gat_sorted.cu",
-                        "gnngls_tpu/ops/pallas_gat_sep.py:48", counts13.get("gat_sep", 0),
-                        k5_err[True], ms, plain, ops, nbytes,
-                        f"bf16 payloads, {k5_shape}; launches from phase 13's n=500 path",
-                        k5_arithmetic_plain_ms=k5_plain))
-        ms, plain, ops, nbytes, k5_plain = k5_timed[False]
-        fx_ms, fx_plain, fx_bound, fx_shape = k5_fx
-        rows.append(row("gat_sep_f32", "gnngls_tpu_torch/csrc/gat_sorted.cu",
-                        "gnngls_tpu/ops/pallas_gat_sep.py:48", counts200.get("gat_sep", 0),
-                        k5_err[False], ms, plain, ops, nbytes,
-                        f"f32 payloads, {k5_shape}; launches from phase 13's pallas_sep "
-                        f"prediction of the n=200 fixture ({fx_shape}, timed there too)",
-                        k5_arithmetic_plain_ms=k5_plain, launch_shape_ms=fx_ms,
-                        launch_shape_plain_ms=fx_plain, launch_shape_bound_ms=fx_bound))
-        log("phase 13: done")
-        phase14a_per_move_devices(dev)
-        per_move = phase14b_against_k1(ds, dev, guide64, init64)
-        phase14c_wall_clock(model, ds, dev)
-        phase14d_first_improvement(ds, dev)
-        phase14e_protocol(ds, dev)
-        phase14f_pt_checkpoint(model, ds, dev)
-        log("phase 14: done")
-        phase15a_train_step(dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            run_dir = pathlib.Path(tmp) / "train"
-            phase15b_resume(dev, run_dir)
-            phase15c_serve(dev, run_dir, ds)
-        first, served, rank_launches = phase15d_train_routes(dev, ds, gap64, card)
-        rows.append(phase15e_rank_sums(model, dev, rank_launches))
-        log(f"phase 15: done on {card}")
-        raw = raw_tsp100(LABEL_INST)
-        phase16a_k_input(dev, raw)
-        label_launches, _ = phase16b_labels(dev, raw)
-        B, err, ms, plain, ops, nbytes, build_ms = phase16b_timing(dev, raw)
-        rows.append(row("gls_whole_labels", "gnngls_tpu_torch/csrc/gls_whole.cu",
-                        "gnngls_tpu/search/pallas_gls.py:257", label_launches, err, ms, plain,
-                        ops, nbytes, f"labels: shared layout, k given, B={B} n=100, the guide "
-                        f"D2 itself, n_iters=0; launches from phase 16b's 64 instances",
-                        reduced_matrices_ms=build_ms))
-        phase16c_clis(dev, model)
-        phase16d_native()
-        log(f"phase 16: done on {card}")
-        phase17a_chunked(model, data, out500, dev, card)
-        phase17b_bf16(model, ds, k2_preds, gap3, dev, card)
-        phase17c_train_routes(dev, card)
-        phase17d_construction(ds, k2_preds, dev, card)
-        phase17e_profiling(model, ds, guide64, init64, dev, card)
-        mesh = phase17f_multi_device(model, ds, dev, card)
-        phase17g_sharded(ds, guide64, init64, mesh, dev, card)
-        log(f"phase 17: done on {card}")
-        phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, served, dev,
-                       card)
-        bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
-        require(not bad, f"imported modules the port must not use: {bad}")
-        print(json.dumps({"kernels": rows}), flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        with exact_f32_matmuls():  # full f32, as the JAX model's HIGHEST, restored after
+            return drive(k4_against)
     except Exception:  # the smoke test's boundary: report and fail
         traceback.print_exc()
         print(f"chip_smoke: FAILED after {time.time() - T0:.1f} s", file=sys.stderr, flush=True)

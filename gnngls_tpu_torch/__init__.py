@@ -39,6 +39,6 @@ matplotlib inside the function that draws).  Kernels are built with nvcc at
 their first CUDA launch (`kernels.py`).
 """
 
-from .utils import is_valid_tour, tour_cost
+from .utils import is_equivalent_tour, is_valid_tour, tour_cost, tour_to_edge_vector
 
 __version__ = "0.1.0"

@@ -13,10 +13,13 @@
 //  * shared (n <= gls_whole_max_n(), 138 on sm_90): D, the city-space
 //    penalties P and the current guide live in shared memory (3 n^2 floats:
 //    120 KB at n=100, so one block per SM);
-//  * global (n <= kMaxN): D and the current guide are read from global
-//    memory where they lie; P and a transposed copy of D live in a
+//  * global (n <= kMaxN, 8192): D and the current guide are read from
+//    global memory where they lie; P and a transposed copy of D live in a
 //    per-instance global workspace (B, 2, n, n) that the caller zeroes
-//    before each launch and the block fills with D^T first.
+//    before each launch and the block fills with D^T first.  Every loop
+//    strides its tour positions and candidate moves over the block's
+//    threads, so n may pass the block's width; what bounds n is the tour
+//    state the block keeps in shared memory (about 24 n bytes).
 // In both, two tour buffers, the inverse tour pos[] and the tour's edge
 // terms (fwd[p] = d(p-1, p), bwd[p] = d(p, p-1) and relocate's removal
 // term rem[p]) stay in shared memory.  Only the addresses differ: both
@@ -71,20 +74,23 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;  // 32: one warp reduces the warps' partials
-constexpr int kMaxN = 1024;  // the global layout's range; search/gls_whole.py's MAX_N
+constexpr int kMaxN = 8192;  // the global layout's range; search/gls_whole.py's MAX_N
+constexpr int kCostLevels = 8;  // log2(kMaxN / 32): warp_tour_cost's stack of partial sums
 constexpr int kSmemCap = 232448;  // bytes a block may use on sm_90
 constexpr float kNegEps = -(float)(1e-8 / (1.0 - 1e-5));
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Layout { kShared = 0, kGlobal = 1 };
 
-size_t smem_bytes(int n, bool global) {
+constexpr size_t smem_bytes(int n, bool global) {
   const size_t nt = n + 1;
   const size_t mats = global ? 0 : 3 * (size_t)n * n;
   const size_t floats = mats + 3 * nt + 2 * kWarps + 1;  // D P G, fwd bwd rem, red_v, slot
   const size_t ints = 2 * nt + n + 2 * kWarps + 1;       // two tours, pos, red_i, cur
   return (floats + ints) * 4;
 }
+static_assert(smem_bytes(kMaxN, true) <= kSmemCap, "the global layout's range must fit");
+static_assert(32 << kCostLevels == kMaxN, "warp_tour_cost's stack must cover kMaxN");
 
 __device__ __forceinline__ bool lex_less(float v1, int i1, float v2, int i2) {
   return v1 < v2 || (v1 == v2 && i1 < i2);
@@ -167,7 +173,8 @@ struct Search {
   // moves.tree_sum's halving tree over d(q, q+1), zero-padded to p2.  Lane l
   // first reduces its column q = l (mod 32), where the tree's strides >= 32
   // pair entries, walking it in bit-reversed order with a stack of partial
-  // sums; strides 16..1 then run in shuffles.  Returns the sum in all lanes.
+  // sums (one level per stride, kCostLevels up to kMaxN); strides 16..1 then
+  // run in shuffles.  Returns the sum in all lanes.
   __device__ float warp_tour_cost() const {
     const int lane = threadIdx.x & 31;
     auto val = [&](int q) { return q < n ? fwd[q + 1] : 0.f; };
@@ -176,11 +183,11 @@ struct Search {
       x = lane < p2 ? val(lane) : 0.f;
     } else {
       const int M = p2 >> 5, lm = 31 - __clz(M);
-      float st[5];
+      float st[kCostLevels];
       for (int kk = 0; kk < M; ++kk) {
         x = val(lane + 32 * (int)(__brev(kk) >> (32 - lm)));
 #pragma unroll
-        for (int lv = 0; lv < 5; ++lv) {
+        for (int lv = 0; lv < kCostLevels; ++lv) {
           if (!((kk >> lv) & 1)) { st[lv] = x; break; }
           x = __fadd_rn(st[lv], x);
         }

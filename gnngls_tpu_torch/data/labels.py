@@ -24,6 +24,7 @@ def warm_labels_chunked(data: dict, shard_dir, *, chunk: int = 250,
                         warm_gls_iters: int = 0, dual_splice: bool = True,
                         perturbation_moves: int = 20,
                         max_chunks: int | None = None,
+                        duty_work: int = 45, duty_idle_s: float = 15.0,
                         verbose: bool = False, device=None) -> dict | None:
     """Production regret labels: the warm-start forced-edge oracle, resumable.
 
@@ -44,8 +45,9 @@ def warm_labels_chunked(data: dict, shard_dir, *, chunk: int = 250,
 
     `max_chunks` bounds the NEW shards computed by this call; when it stops
     the run early the function returns None (callers exit and relaunch).
-    gnngls_tpu's duty cycle (an idle pause every 45 instances for its TPU
-    worker) is left out: it changes no label.
+    gnngls_tpu's duty cycle (an idle pause of `duty_idle_s` every
+    `duty_work` instances for its TPU worker) is left out: it changes no
+    label, and the two keywords are accepted and unused.
 
     Updates data's regret, opt_tour, opt_cost and in_solution in place and
     returns it, or None if max_chunks stopped the run before completion.

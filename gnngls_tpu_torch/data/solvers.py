@@ -4,7 +4,8 @@
 * `held_karp`, `held_karp_fixed_edge`: exact bitmask DP (numpy) for
   n <= HELD_KARP_MAX_N; a forced edge by the exact big-M reduction.
 * `gls_oracle`: weight-guided fixed-budget GLS from a nearest-neighbour start,
-  run by `search.batched.run_fixed_kernel`.
+  run by `search.batched.run_fixed_kernel`, its launches cut at
+  `MAX_D2_BYTES` of distance matrices.
 * The forced-edge label oracles, one K1 lane per forced-edge problem:
   `gls_fixed_edge_costs` (cold: nearest neighbour on the reduced matrix, then
   GLS) and `warm_fixed_edge_costs[_batch]` (the best-known tour with the edge
@@ -16,9 +17,14 @@
   are split.
 * `concorde_tour`, `lkh_fixed_edge_tour`: the external binaries, when on PATH.
 
-Everything on the device runs through the whole-GLS kernel on the card and
-its plain twin on the CPU.  If the kernel fails, the oracle raises; nothing
-falls back to another engine.
+Everything on the device runs through the whole-GLS kernel on the card (up
+to its range, `search.gls_whole.MAX_N`) and its plain twin on the CPU.  If
+the kernel fails, the oracle raises; nothing falls back to another engine.
+
+Keywords of gnngls_tpu's oracles that change no number here are accepted
+and unused: `seed` (unused in gnngls_tpu too), and `edge_chunk` and
+`inst_chunk`, which cut the lanes to fit TPU memory where the port cuts them
+by `MAX_D2_BYTES`; every lane is independent.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 HELD_KARP_MAX_N = 16
-MAX_D2_BYTES = 1 << 31  # the reduced matrices of one kernel launch
+MAX_D2_BYTES = 1 << 31  # the (n, n) distance matrices of one kernel launch
 
 
 def held_karp(D: np.ndarray) -> Tuple[list, float]:
@@ -99,18 +105,26 @@ def held_karp_fixed_edge(D: np.ndarray, e: Tuple[int, int]) -> Tuple[list, float
 
 
 def gls_oracle(Ds: np.ndarray, *, n_iters: int = 25, perturbation_moves: int = 30,
-               device=None) -> Tuple[np.ndarray, np.ndarray]:
+               seed: int = 0, device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Ds (B, n, n) -> (tours (B, n+1) int32, costs (B,) f64: f32 sums of D
-    along the tours).  `device` is "cuda" unless the caller asks for "cpu"."""
+    along the tours).  `device` is "cuda" unless the caller asks for "cpu".
+    The instances go to the card MAX_D2_BYTES of distance matrices at a time
+    (each searched alone, so the cut moves no number).  `seed` is accepted
+    and unused, as in gnngls_tpu: the search draws nothing."""
     from ..evaluate import resolve_device
     from ..search import batched
 
     dev = resolve_device(device)
     Ds = np.ascontiguousarray(Ds, dtype=np.float32)
-    inits = batched.nearest_neighbor_batch(torch.as_tensor(Ds, device=dev)).cpu().numpy()
-    res = batched.run_fixed_kernel(Ds, Ds[:, None], inits, n_iters=n_iters,
-                                   perturbation_moves=perturbation_moves, device=dev)
-    return res.best_tours.astype(np.int32), res.best_costs
+    tours, costs = [], []
+    for s, e in _launches(len(Ds), Ds.shape[1]):
+        init = batched.nearest_neighbor_batch(torch.as_tensor(Ds[s:e], device=dev))
+        res = batched.run_fixed_kernel(Ds[s:e], Ds[s:e, None], init.cpu().numpy(),
+                                       n_iters=n_iters, perturbation_moves=perturbation_moves,
+                                       device=dev)
+        tours.append(res.best_tours.astype(np.int32))
+        costs.append(res.best_costs)
+    return np.concatenate(tours), np.concatenate(costs)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +132,7 @@ def gls_oracle(Ds: np.ndarray, *, n_iters: int = 25, perturbation_moves: int = 3
 
 
 def _launches(n_lanes: int, n: int):
-    """Lane ranges [s, e) whose reduced (n, n) f32 matrices fit MAX_D2_BYTES."""
+    """Lane ranges [s, e) whose (n, n) f32 matrices fit MAX_D2_BYTES."""
     width = max(1, MAX_D2_BYTES // (4 * n * n))
     return [(s, min(s + width, n_lanes)) for s in range(0, n_lanes, width)]
 
@@ -178,13 +192,15 @@ def cold_lanes(D: np.ndarray, edges: np.ndarray, *, device=None):
 
 
 def gls_fixed_edge_costs(D: np.ndarray, edges: np.ndarray, *, n_iters: int = 10,
-                         perturbation_moves: int = 30, device=None) -> Tuple[np.ndarray, np.ndarray]:
+                         perturbation_moves: int = 30, edge_chunk: int = 1024,
+                         device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Near-optimal tour cost through each forced edge of one instance.
 
     Each lane solves one forced-edge problem from scratch (`cold_lanes`):
     nearest neighbour on its big-M reduction D2, then GLS on D2 with D2 as
     the guide and the unreduced k.  The cost is the kernel's f32 search cost
-    plus M.
+    plus M.  `edge_chunk` is accepted and unused (the lanes are cut by
+    MAX_D2_BYTES).
 
     Returns (costs (E,) f64, used (E,) bool: whether the forced edge is in the
     returned tour)."""
@@ -261,7 +277,7 @@ def warm_lanes(Ds: np.ndarray, edges: np.ndarray, best_tours: np.ndarray, *,
 
 def warm_fixed_edge_costs_batch(Ds: np.ndarray, edges: np.ndarray, best_tours: np.ndarray,
                                 *, n_gls_iters: int = 0, perturbation_moves: int = 20,
-                                dual_splice: bool = True, device=None):
+                                dual_splice: bool = True, inst_chunk: int = 4, device=None):
     """Near-optimal tour cost through each forced edge of each instance,
     warm-started from its best-known tour.
 
@@ -276,7 +292,8 @@ def warm_fixed_edge_costs_batch(Ds: np.ndarray, edges: np.ndarray, best_tours: n
     Ds (B, n, n), edges (E, 2), best_tours (B, n+1).  Returns (costs (B, E)
     f64, used (B, E) bool, tours (B, E, n+1) int32).  The host holds the
     B * S * E lane tours and a (B, E, n) f64 gather, so callers bound B
-    (`labels.warm_labels_chunked` by `labels.MAX_TOUR_BYTES`)."""
+    (`labels.warm_labels_chunked` by `labels.MAX_TOUR_BYTES`).  `inst_chunk`
+    is accepted and unused (the lanes are cut by MAX_D2_BYTES)."""
     from ..search import gls_whole
 
     Ds64 = np.asarray(Ds, dtype=np.float64)
@@ -305,10 +322,12 @@ def warm_fixed_edge_costs_batch(Ds: np.ndarray, edges: np.ndarray, best_tours: n
 
 def warm_fixed_edge_costs(D: np.ndarray, edges: np.ndarray, best_tour: np.ndarray, *,
                           n_gls_iters: int = 2, perturbation_moves: int = 20,
-                          dual_splice: bool = False, device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                          edge_chunk: int = 2048, dual_splice: bool = False,
+                          device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """`warm_fixed_edge_costs_batch` for one instance (with gnngls_tpu's
     defaults for one instance).  Returns (costs (E,) f64, used (E,) bool,
-    tours (E, n+1) int32)."""
+    tours (E, n+1) int32).  `edge_chunk` is accepted and unused (the lanes
+    are cut by MAX_D2_BYTES)."""
     costs, used, tours = warm_fixed_edge_costs_batch(
         np.asarray(D)[None], edges, np.asarray(best_tour)[None], n_gls_iters=n_gls_iters,
         perturbation_moves=perturbation_moves, dual_splice=dual_splice, device=device)

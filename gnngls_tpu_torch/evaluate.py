@@ -54,13 +54,13 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
     """Unscaled, non-negative per-edge regret predictions, (N, E).  gat_impl
     names the GATConv route (`models.regret_gat.gat_conv_for`)."""
     dev = resolve_device(device)
-    exact_f32_matmuls()
     model = model.to(dev).eval()
     outs = []
-    for s in range(0, len(dataset), batch_size):
-        idx = np.arange(s, min(s + batch_size, len(dataset)))
-        x = torch.as_tensor(dataset.get_scaled_batch(idx)["features"], device=dev)
-        outs.append(model(x, gat_impl=gat_impl)[..., 0].cpu().numpy())
+    with exact_f32_matmuls():
+        for s in range(0, len(dataset), batch_size):
+            idx = np.arange(s, min(s + batch_size, len(dataset)))
+            x = torch.as_tensor(dataset.get_scaled_batch(idx)["features"], device=dev)
+            outs.append(model(x, gat_impl=gat_impl)[..., 0].cpu().numpy())
     y_scaled = np.concatenate(outs, axis=0)
     y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
     return np.maximum(y, 0.0)

@@ -17,14 +17,20 @@ Multi-device forwards, inference only: `forward_ring` (edge-sharded
 activations, ops/gat_ring.py) and `forward_tp` (FFNs split over the hidden
 units, ops/tp.py, on a copy from `shard_params_tp`).
 
-Numerics: the JAX model runs every matmul in full f32 (HIGHEST).  `forward`
-therefore turns TF32 off for cuBLAS and cuDNN (torch.backends.cuda.matmul.
-allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False) before it runs,
-in either mode.
+Numerics: the JAX model runs every matmul in full f32 (HIGHEST), op by op,
+and leaves global configuration alone.  `forward`, `forward_ring`,
+`forward_tp`, `evaluate.predict_regret` and the train and eval steps
+therefore run under `exact_f32_matmuls`: torch's float32 matmul precision is
+"highest" for their span and the caller's setting comes back after it.  A
+bare `model(x)` followed by the caller's own `.backward()` runs that
+backward under the caller's setting (TF32 on the card if the caller chose
+"high"); `train.step.train_step` holds full f32 through its backward and
+optimizer step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -73,10 +79,27 @@ class RegretGNNConfig:
         return self.embed_dim // self.n_heads
 
 
-def exact_f32_matmuls() -> None:
-    """Full-f32 products on the card, as the JAX model's HIGHEST precision."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@contextlib.contextmanager
+def exact_f32_matmuls():
+    """Full-f32 products on the card for the span, as the JAX model's
+    HIGHEST precision: torch's float32 matmul precision is "highest" inside
+    and the caller's setting is restored on exit, on an exception too.
+    Where the caller mixed the legacy flag (torch.backends.cuda.matmul.
+    allow_tf32) with the precision API, torch refuses to read the precision
+    back, so that flag is held and restored instead.  cuDNN's TF32 flag
+    governs convolutions, and the model has none, so it is left alone."""
+    try:
+        saved = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        restore = functools.partial(torch.set_float32_matmul_precision, saved)
+    except RuntimeError:  # the legacy and the new API mixed
+        flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        restore = functools.partial(setattr, torch.backends.cuda.matmul, "allow_tf32", flag)
+    try:
+        yield
+    finally:
+        restore()
 
 
 class GATConvParams(nn.Module):
@@ -177,17 +200,17 @@ class RegretGNN(nn.Module):
         squeeze = x.dim() == 2
         if squeeze:
             x = x[None]
-        exact_f32_matmuls()
         topo = build_topology(n_from_edges(x.shape[-2]))
         unbatch = (lambda t: t[0]) if squeeze else (lambda t: t)  # noqa: E731
-        h = self.embed(x)
-        if taps is not None:
-            taps.append(unbatch(h))
-        for layer in self.layers:
-            h = layer(h, conv, topo)
+        with exact_f32_matmuls():
+            h = self.embed(x)
             if taps is not None:
                 taps.append(unbatch(h))
-        return unbatch(self.decision(h))
+            for layer in self.layers:
+                h = layer(h, conv, topo)
+                if taps is not None:
+                    taps.append(unbatch(h))
+            return unbatch(self.decision(h))
 
 
 def forward_ring(model: RegretGNN, x: torch.Tensor, n: int, *, mesh, axis: str = "model",
@@ -202,9 +225,8 @@ def forward_ring(model: RegretGNN, x: torch.Tensor, n: int, *, mesh, axis: str =
 
     if model.training:
         raise ValueError("forward_ring is inference only: call model.eval() first")
-    exact_f32_matmuls()
     topo = build_topology(n)
-    with torch.no_grad():
+    with torch.no_grad(), exact_f32_matmuls():
         h = model.embed(x)
         for layer in model.layers:
             h = h + gat_conv_ring(layer.gat.params(), topo, h, model.cfg.n_heads, mesh, axis,
@@ -236,9 +258,8 @@ def forward_tp(model: RegretGNN, x: torch.Tensor, *, mesh, axis: str = "model",
     from ..ops.tp import ffn_tp
 
     conv = gat_conv_naive if gat_impl == "naive" else gat_conv
-    exact_f32_matmuls()
     topo = build_topology(n_from_edges(x.shape[-2]))
-    with torch.no_grad():
+    with torch.no_grad(), exact_f32_matmuls():
         h = model.embed(x)
         for layer in model.layers:
             h = h + conv(layer.gat.params(), topo, h, model.cfg.n_heads)

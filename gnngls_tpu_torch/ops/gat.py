@@ -64,7 +64,9 @@ def to_bf16(x: torch.Tensor) -> torch.Tensor:
     f32 accumulation (preferred_element_type=f32).  A torch product of bf16
     operands returns bf16, which would round the sum too; products of
     bf16 values are exact in f32, so the port contracts these values in
-    f32 (TF32 stays off: `exact_f32_matmuls`).  Under autograd the casts'
+    f32 (full f32 under `models.regret_gat.exact_f32_matmuls`, which the
+    model's forward and the train step hold; a caller's own backward after a
+    bare forward runs at the caller's precision).  Under autograd the casts'
     backward rounds the cotangent to bf16 where JAX's transpose of the
     contraction does (its result is cast to the bf16 operand's dtype)."""
     return x.to(torch.bfloat16).to(x.dtype)

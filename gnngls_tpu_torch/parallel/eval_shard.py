@@ -15,11 +15,17 @@ from ..search import batched
 from .mesh import all_gather_cat, data_sharding
 
 
-def make_sharded_gls(mesh, *, n_iters: int, perturbation_moves: int = 20):
+def make_sharded_gls(mesh, *, n_iters: int, perturbation_moves: int = 20,
+                     trace_cap: int = 1024, use_shard_map: bool = True):
     """run(Ds, guide_stack, init_tours) -> (best_tours (B, n+1) int32,
     best_costs (B,) f32, accepted moves (B,) int64) of the whole batch, on
     every rank.  Every rank passes the global batch (B divisible by the
-    axis' ranks) and searches its share, as `batched.run_fixed_kernel`."""
+    axis' ranks) and searches its share, as `batched.run_fixed_kernel`.
+
+    `trace_cap` and `use_shard_map` are gnngls_tpu's, accepted and unused:
+    its trace count, the moves returned, counts every accepted move whatever
+    the cap, and shard_map against a global jit is a choice of TPU program
+    that changes no result."""
     group = mesh.get_group("data")
     dev = torch.device(mesh.device_type)
 

@@ -10,7 +10,9 @@ wrapper raises.  The kernel has two state layouts, one body:
   memory, for n <= `max_n()` (138 on sm_90);
 * "global": D and the guides read in place from global memory, the penalties
   and a transposed copy of D in a (B, 2, n, n) workspace that the wrapper
-  allocates zeroed for each launch, for n <= `MAX_N` (1024).
+  allocates zeroed for each launch, for n <= `MAX_N` (8192: the block keeps
+  only its tour state in shared memory, and its threads stride over tour
+  positions and candidate moves, so n may pass the block's 1024 threads).
 
 "auto" takes the shared layout where it fits.  Both layouts give the same
 bits.  Past `MAX_N` the wrapper raises rather than compute some other way.
@@ -23,7 +25,7 @@ import torch
 from .. import kernels
 from .local_search import GLSOutput, gls_fixed_plain
 
-MAX_N = 1024  # the global layout's range; csrc/gls_whole.cu's kMaxN
+MAX_N = 8192  # the global layout's range; csrc/gls_whole.cu's kMaxN
 LAYOUTS = {"shared": 0, "global": 1}
 
 

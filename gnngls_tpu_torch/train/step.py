@@ -15,6 +15,10 @@ does: BatchNorm takes the global batch's statistics (`ops.norm.
 batch_norm_group`), the loss is the global mean, and the gradients are
 summed over the group before the step, so every rank steps the same
 replicated parameters.
+
+Both steps hold full-f32 matmuls (`models.regret_gat.exact_f32_matmuls`) for
+their whole span, the backward and the optimizer step included, and give
+the caller's precision setting back after it.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..models.regret_gat import RegretGNN
+from ..models.regret_gat import RegretGNN, exact_f32_matmuls
 from ..ops.norm import batch_norm_group
 
 B1, B2, EPS = float(np.float32(0.9)), float(np.float32(0.999)), 1e-8
@@ -77,18 +81,19 @@ def train_step(model: RegretGNN, optimizer: torch.optim.Optimizer, x: torch.Tens
     the loss before the step."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with batch_norm_group(model, group):
-        loss = loss_fn(model(x, gat_impl=gat_impl), y, target_kind=target_kind,
-                       pos_weight=pos_weight)
-    if group is None:
-        loss.backward()
-    else:
-        (loss / dist.get_world_size(group)).backward()
-        for p in model.parameters():
-            if p.grad is not None:
-                dist.all_reduce(p.grad, group=group)
-        loss = _global_mean(loss, group)
-    optimizer.step()
+    with exact_f32_matmuls():
+        with batch_norm_group(model, group):
+            loss = loss_fn(model(x, gat_impl=gat_impl), y, target_kind=target_kind,
+                           pos_weight=pos_weight)
+        if group is None:
+            loss.backward()
+        else:
+            (loss / dist.get_world_size(group)).backward()
+            for p in model.parameters():
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=group)
+            loss = _global_mean(loss, group)
+        optimizer.step()
     return loss.detach()
 
 
@@ -99,6 +104,7 @@ def eval_step(model: RegretGNN, x: torch.Tensor, y: torch.Tensor, *,
     """The loss in eval mode (running statistics), without a gradient; with
     `group`, the global batch's."""
     model.eval()
-    loss = loss_fn(model(x, gat_impl=gat_impl), y, target_kind=target_kind,
-                   pos_weight=pos_weight)
+    with exact_f32_matmuls():
+        loss = loss_fn(model(x, gat_impl=gat_impl), y, target_kind=target_kind,
+                       pos_weight=pos_weight)
     return loss if group is None else _global_mean(loss, group)

@@ -24,6 +24,7 @@ from gnngls_tpu_torch.ops.gat_group import merge_group_partials
 from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
 from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials, gat_sorted_partials_plain
 from gnngls_tpu_torch.search.batched import run_fixed
+from gnngls_tpu_torch.search import gls_whole as gls_whole_module
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
 from gnngls_tpu_torch.search.gls_whole import max_n as gls_whole_max_n
@@ -67,11 +68,14 @@ def test_gat_group_kernel_matches_plain(cuda, n, H, F):
                                             (64, 3, 4, 10, 1), (138, 1, 1, 5, 1),
                                             (3, 4, 3, 4, 1), (4, 4, 3, 4, 2), (33, 3, 3, 8, 1),
                                             (34, 2, 3, 8, 2), (138, 2, 2, 10, 2),
-                                            (139, 2, 2, 10, 1), (500, 2, 2, 20, 1)])
+                                            (139, 2, 2, 10, 1), (500, 2, 2, 20, 1),
+                                            (1100, 2, 2, 10, 2), (2100, 1, 1, 10, 1)])
 def test_gls_kernel_matches_plain(cuda, n, B, iters, pm, G):
     """Every layout that takes n against the twin: n=3 and 4 have at most one
     2-opt candidate, n=33 and 34 put a row of 31 and 32 candidates beside a
-    warp, 138 is the top of the shared layout and 139 the first global n."""
+    warp, 138 is the top of the shared layout and 139 the first global n;
+    n=1100 and 2100 pass the block's 1024 threads (and 2100 the tour cost's
+    stack of five levels that served n <= 1024)."""
     rng = np.random.default_rng(n + G)
     D = coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32))
     R = rng.random((B, n, n))
@@ -385,9 +389,10 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):  # beyond the shared-memory layout
         gls_whole(D, D, torch.zeros((1, 201), dtype=torch.int32, device=cuda), n_iters=1,
                   layout="shared")
-    D = torch.zeros((1, 1025, 1025), device=cuda)
+    n = gls_whole_module.MAX_N + 1
+    D = torch.zeros((1, n, n), device=cuda)
     with pytest.raises(ValueError):  # beyond the global layout
-        gls_whole(D, D, torch.zeros((1, 1026), dtype=torch.int32, device=cuda), n_iters=1)
+        gls_whole(D, D, torch.zeros((1, n + 1), dtype=torch.int32, device=cuda), n_iters=1)
 
 
 @pytest.mark.parametrize("n,B,iters,pm,G,first_improvement", [
@@ -689,3 +694,96 @@ def test_multi_device_layer_on_every_card(cuda, tmp_path):
     kernels.build()  # once, before the ranks load it
     tmp.spawn(torch_dist_ranks.run, args=(world, str(tmp_path / "rendezvous"), want, "cuda"),
               nprocs=world, join=True)
+
+
+def _valid(tours, n) -> bool:
+    tours = np.asarray(tours).reshape(-1, n + 1)
+    return bool((tours[:, 0] == 0).all() and (tours[:, -1] == 0).all()
+                and (np.sort(tours[:, :-1], axis=1) == np.arange(n)).all())
+
+
+@pytest.mark.parametrize("caller", ["gls_oracle", "gls_fixed_edge_costs",
+                                    "warm_fixed_edge_costs_batch", "make_sharded_gls",
+                                    "search_on_predictions"])
+def test_k1_callers_launch_the_kernel_past_1024_on_the_card(cuda, caller, request):
+    """Each caller of K1 at n=1100, past the block's 1024 threads, launches
+    K1 and returns valid tours (the label lanes each through its edge)."""
+    from gnngls_tpu_torch import evaluate as tev
+    from gnngls_tpu_torch.data import solvers
+    from gnngls_tpu_torch.parallel.eval_shard import make_sharded_gls
+
+    n, B = 1100, 2
+    rng = np.random.default_rng(16)
+    coords = rng.random((B, n, 2)).astype(np.float32)
+    D = coords_to_distance_matrix(coords)
+    edges = build_topology(n).edges[::300000][:2]
+    before = kernels.launches["gls_whole"]
+    if caller == "gls_oracle":
+        tours = solvers.gls_oracle(D, n_iters=1, perturbation_moves=5, device="cuda")[0]
+    elif caller == "gls_fixed_edge_costs":
+        _, used = solvers.gls_fixed_edge_costs(D[0].astype(np.float64), edges, n_iters=1,
+                                               perturbation_moves=5, device="cuda")
+        tours = None
+        assert used.all()
+    elif caller == "warm_fixed_edge_costs_batch":
+        best = nearest_neighbor_batch(torch.as_tensor(D[:1], device=cuda)).cpu().numpy()
+        _, used, tours = solvers.warm_fixed_edge_costs_batch(
+            D[:1].astype(np.float64), edges, best, n_gls_iters=1, perturbation_moves=5,
+            dual_splice=False, device="cuda")
+        assert used.all()
+    elif caller == "make_sharded_gls":
+        init = nearest_neighbor_batch(torch.as_tensor(D, device=cuda)).cpu().numpy()
+        tours = make_sharded_gls(request.getfixturevalue("nccl_mesh"), n_iters=1,
+                                 perturbation_moves=5)(D, D[:, None], init)[0]
+    else:
+        preds = rng.random((B, n * (n - 1) // 2)).astype(np.float32)
+        tours = tev.search_on_predictions(preds, coords, n_iters=1, perturbation_moves=5,
+                                          device="cuda")[0].best_tours
+    assert kernels.launches["gls_whole"] > before
+    assert tours is None or _valid(tours, n)
+
+
+def test_model_work_holds_full_f32_for_a_tf32_caller_on_the_card(cuda):
+    """A caller at "high" (TF32 in cuBLAS, which moves a plain product) gets
+    from a forward through K2, predict_regret and a `sep` train step the bits
+    it gets at "highest", and reads "high" after each call."""
+    import copy
+    import pathlib
+
+    from gnngls_tpu_torch import evaluate as tev
+    from gnngls_tpu_torch.data.dataset import TSPDataset
+    from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig, init_params
+    from gnngls_tpu_torch.train.step import make_optimizer, train_step
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    ds = TSPDataset.from_npz(root / "data/tsp100/instances.npz", root / "data/tsp100/test.txt",
+                             scalers_file=root / "data/tsp100/scalers.json")
+    ds.coords, ds.features, ds.regret = ds.coords[:8], ds.features[:8], ds.regret[:8]
+    ds.in_solution, ds.opt_cost = ds.in_solution[:8], ds.opt_cost[:8]
+    batch = ds.get_scaled_batch(np.arange(8))
+    x, y = (torch.as_tensor(batch[k], device=cuda) for k in ("features", "regret"))
+    model = init_params(RegretGNNConfig(embed_dim=32, n_heads=4),
+                        torch.Generator().manual_seed(16)).to(cuda)
+    a = torch.randn((256, 256), device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def each(setting):
+        torch.set_float32_matmul_precision(setting)
+        out = [(a @ a).cpu()]
+        with torch.no_grad():
+            out.append(model(x).cpu())
+        out.append(torch.as_tensor(tev.predict_regret(model, ds, device=cuda)))
+        m = copy.deepcopy(model)
+        out.append(train_step(m, make_optimizer(m), x, y, gat_impl="sep").cpu())
+        out += [p.grad.cpu() for p in m.parameters()] + [t.cpu() for t in m.state_dict().values()]
+        assert torch.get_float32_matmul_precision() == setting
+        return out
+
+    try:
+        before = kernels.launches["gat_group"]
+        highest, high = each("highest"), each("high")
+        assert kernels.launches["gat_group"] > before
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert not torch.equal(high[0], highest[0])  # TF32 was live for the caller's product
+    for i, (u, v) in enumerate(zip(high[1:], highest[1:])):
+        assert torch.equal(u, v), f"output {i + 1} moved under the caller's 'high'"

@@ -12,8 +12,14 @@
   names.  Every GAT route runs in eval mode, every plain route trains (the
   bf16 routes `bf16` and `sep_fast` among them), and the evaluation modes and
   exact solvers ported since run.
+* The API that gnngls_tpu's callers use: the port's top-level names are the
+  JAX package's, and every keyword-only parameter of a public function of
+  gnngls_tpu is accepted by the function at the same path in the port (read
+  from both packages' sources), but for the structural differences named in
+  STRUCTURAL.
 """
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -165,3 +171,85 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
                               timeout=120, cwd=script.parent)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def _top_level_names(pkg: str) -> set:
+    """The names a package's __init__.py imports or assigns."""
+    names = set()
+    for node in ast.parse((ROOT / pkg / "__init__.py").read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names - {"annotations"}
+
+
+def test_top_level_names_are_the_jax_packages():
+    import gnngls_tpu_torch
+    from gnngls_tpu_torch import utils
+
+    names = _top_level_names("gnngls_tpu")
+    assert {"is_equivalent_tour", "tour_to_edge_vector", "__version__"} <= names
+    assert _top_level_names("gnngls_tpu_torch") == names
+    for name in names - {"__version__"}:
+        assert getattr(gnngls_tpu_torch, name) is getattr(utils, name)
+
+
+# Keyword-only parameters of gnngls_tpu that the port leaves out on purpose:
+# (module path, function) -> {parameter: reason}.
+STRUCTURAL = {
+    ("evaluate.py", "evaluate"): dict.fromkeys(
+        ("params", "bn_state", "model_cfg"),
+        "the port's model is an nn.Module that holds its weights, statistics and config"),
+    ("models/regret_gat.py", "forward_ring"): {
+        "n_heads": "read from model.cfg"},
+    ("models/regret_gat.py", "forward_tp"): {
+        "n_heads": "read from model.cfg",
+        "train": "the BatchNorm mode is the module's, set by model.train() / eval()"},
+    ("train/checkpoint.py", "load_checkpoint"): dict.fromkeys(
+        ("params_like", "bn_state_like", "opt_state_like"),
+        "pytree templates: the port loads into an nn.Module and its optimizer"),
+    ("train/checkpoint.py", "save_checkpoint"): dict.fromkeys(
+        ("params", "bn_state", "opt_state"),
+        "pytrees: the port saves an nn.Module and its optimizer"),
+}
+
+
+def _public_functions(path: pathlib.Path) -> dict:
+    """name -> ast.arguments of each public top-level function and method."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = node.args
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out.update({f"{node.name}.{f.name}": f.args for f in node.body
+                        if isinstance(f, ast.FunctionDef) and not f.name.startswith("_")})
+    return out
+
+
+def test_port_accepts_every_jax_keyword():
+    jax_root, port_root = ROOT / "gnngls_tpu", ROOT / "gnngls_tpu_torch"
+    missing, compared = {}, 0
+    for jpath in sorted(jax_root.rglob("*.py")):
+        rel = jpath.relative_to(jax_root)
+        if not (port_root / rel).exists():
+            continue
+        jax_fns, port_fns = _public_functions(jpath), _public_functions(port_root / rel)
+        for name in sorted(set(jax_fns) & set(port_fns)):
+            j, t = jax_fns[name], port_fns[name]
+            if t.kwarg is not None:
+                continue
+            compared += 1
+            accepted = {a.arg for a in t.args + t.kwonlyargs}
+            allowed = STRUCTURAL.get((rel.as_posix(), name), {})
+            lost = [a.arg for a in j.kwonlyargs
+                    if a.arg not in accepted and a.arg not in allowed]
+            if lost:
+                missing[f"{rel.as_posix()}::{name}"] = lost
+    assert compared >= 50
+    assert not missing, missing
+    for (rel, name), params in STRUCTURAL.items():  # the allowlist names real gaps only
+        j = _public_functions(jax_root / rel)[name]
+        t = _public_functions(port_root / rel)[name]
+        assert set(params) <= {a.arg for a in j.kwonlyargs}
+        assert not set(params) & {a.arg for a in t.args + t.kwonlyargs}

@@ -165,9 +165,10 @@ and prints no result line:
      best_probabilistic_nearest_neighbour (64 samples) on tsp100 instance 0
      under phase 3's regret, Gumbel noise from a seeded CPU generator: the
      card's tour equals the CPU's and is valid; (e) device_trace around one
-     predict_regret batch (K2) and one run_fixed_kernel call (K1) with
-     annotate and step_annotation regions: the exported Chrome trace holds
-     the regions and CUDA kernels named gat_group and gls_whole; (f) a NCCL
+     predict_regret batch (K2) and one run_fixed_kernel call (K1) in
+     nested annotate regions: the exported Chrome trace holds the regions,
+     the program's own spans (gnngls.predict, gnngls.search.kernel, ...)
+     and CUDA kernels named gat_group and gls_whole; (f) a NCCL
      process group of one rank (multihost.initialize at a free local port),
      make_mesh(("data", "model")); forward_ring, forward_tp (after
      shard_params_tp) on tsp100 instances 0-3 at full width and
@@ -2320,7 +2321,7 @@ def phase17e_profiling(model, ds, guide64, init64, dev, card):
     from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
     from gnngls_tpu_torch.evaluate import predict_regret
     from gnngls_tpu_torch.search.batched import run_fixed_kernel
-    from gnngls_tpu_torch.utils.profiling import annotate, device_trace, step_annotation
+    from gnngls_tpu_torch.utils.profiling import annotate, device_trace
 
     k = len(guide64)
     D = coords_to_distance_matrix(ds.coords[:k]).astype(np.float32)
@@ -2328,7 +2329,7 @@ def phase17e_profiling(model, ds, guide64, init64, dev, card):
         with device_trace(tmp):
             with annotate("smoke_inference"):
                 predict_regret(model, head(ds, BATCH), batch_size=BATCH, device=dev)
-            with step_annotation("smoke_search", 0):
+            with annotate("smoke_search#0"):
                 run_fixed_kernel(D, guide64, init64, n_iters=N_ITERS, perturbation_moves=PM,
                                  device=dev)
         traces = list(pathlib.Path(tmp).glob("*.pt.trace.json"))
@@ -2338,11 +2339,12 @@ def phase17e_profiling(model, ds, guide64, init64, dev, card):
     names = {e.get("name") for e in events}
     kernels = [e for e in events if e.get("cat") == "kernel"]
     found = {key: sum(key in e["name"] for e in kernels) for key in ("gat_group", "gls_whole")}
+    regions = ("smoke_inference", "smoke_search#0", "gnngls.predict", "gnngls.predict.fetch",
+               "gnngls.search", "gnngls.search.kernel")
     log(f"phase 17e ({card}): device_trace wrote {size} bytes, {len(events)} events, "
         f"{len(kernels)} CUDA kernels; regions present: "
-        f"{sorted(r for r in ('smoke_inference', 'smoke_search#0') if r in names)}; kernel "
-        f"events by name {found}")
-    require({"smoke_inference", "smoke_search#0"} <= names, "annotated regions missing")
+        f"{sorted(r for r in regions if r in names)}; kernel events by name {found}")
+    require(set(regions) <= names, "annotated regions missing")
     require(all(found.values()), f"the trace lacks a kernel: {found}")
 
 

@@ -6,6 +6,9 @@ and `split_dataset` carves the reference's shuffled train/test/val split
 (both as scripts/preprocess_dataset.py does).  `from_reference_dir` reads the reference's own
 format: a txt listing of pickled networkx graphs with `scalers.pkl` beside
 it (unpickling them needs networkx; this module does not import it).
+`from_arrays`, `edge_features` and `get_scaled_batch` are the spans
+"gnngls.dataset", "gnngls.dataset.features" and "gnngls.dataset.batch"
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ import numpy as np
 
 from ..core.graph import build_topology, edge_index
 from ..core.scaler import MinMaxScaler, load_scalers
+from ..utils.profiling import annotate
 from .generate import coords_to_distance_matrix, load_dataset
 
 
+@annotate("gnngls.dataset.features")
 def edge_features(coords: np.ndarray) -> np.ndarray:
     """(..., n, 2) coords -> (..., E, 1) features (the edge weight)."""
     topo = build_topology(coords.shape[-2])
@@ -61,6 +66,7 @@ class TSPDataset:
         self.scalers = {"features": f, "regret": r}
         return self.scalers
 
+    @annotate("gnngls.dataset.batch")
     def get_scaled_batch(self, idx) -> dict:
         """Slice and min-max scale a batch, dropping `feat_drop_idx` columns."""
         idx = np.asarray(idx)
@@ -79,6 +85,7 @@ class TSPDataset:
         }
 
     @classmethod
+    @annotate("gnngls.dataset")
     def from_arrays(cls, data: dict, indices=None, scalers=None,
                     feat_drop_idx=()) -> "TSPDataset":
         """From a dataset dict (data/generate.py's arrays, with "regret");

@@ -15,6 +15,10 @@ kernels' plain twins run.  The engine names are gnngls_tpu's.  "auto" takes
 the whole-search engine wherever it can run (a fixed budget,
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
+
+Each step of `evaluate` and `predict_regret` is a named span ("gnngls.*",
+utils/profiling.py lists the tree), which a profiler records and the
+benchmark reads.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from .data.dataset import TSPDataset
 from .data.generate import coords_to_distance_matrix
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
 from .search import batched, gls_whole
+from .utils.profiling import annotate
 
 ENGINES = ("auto", "pallas", "xla")
 
@@ -49,6 +54,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 @torch.no_grad()
+@annotate("gnngls.predict")
 def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 64,
                    device=None, gat_impl: str = "auto") -> np.ndarray:
     """Unscaled, non-negative per-edge regret predictions, (N, E).  gat_impl
@@ -59,13 +65,18 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
     with exact_f32_matmuls():
         for s in range(0, len(dataset), batch_size):
             idx = np.arange(s, min(s + batch_size, len(dataset)))
-            x = torch.as_tensor(dataset.get_scaled_batch(idx)["features"], device=dev)
-            outs.append(model(x, gat_impl=gat_impl)[..., 0].cpu().numpy())
-    y_scaled = np.concatenate(outs, axis=0)
-    y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
-    return np.maximum(y, 0.0)
+            feats = dataset.get_scaled_batch(idx)["features"]
+            with annotate("gnngls.predict.forward"):
+                y = model(torch.as_tensor(feats, device=dev), gat_impl=gat_impl)[..., 0]
+            with annotate("gnngls.predict.fetch"):
+                outs.append(y.cpu().numpy())
+    with annotate("gnngls.predict.unscale"):
+        y_scaled = np.concatenate(outs, axis=0)
+        y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
+        return np.maximum(y, 0.0)
 
 
+@annotate("gnngls.evaluate")
 def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
              guides: List[str] = ("regret_pred",),
              time_limit: Optional[float] = 10.0,
@@ -88,7 +99,13 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     per accepted move), or "auto" ("pallas" when n_iters is set,
     first_improvement is off and n <= gls_whole.MAX_N, else "xla").
     "pallas" without n_iters or with first_improvement raises ValueError.
+
+    `timings` holds inference_s (predictions and their matrices), search_s
+    (the search's chunk stamps), total_s (the whole call), the peak device
+    memory and, from the per-move engine, search_rounds: the lock-step rounds
+    the batch ran (local search, perturbation); None from the kernel.
     """
+    t_start = time.time()
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
     if n_iters is None and time_limit is None:
@@ -103,7 +120,8 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     n = dataset.n_nodes
     use_kernel = engine == "pallas" or (engine == "auto" and n_iters is not None
                                         and not first_improvement and n <= gls_whole.MAX_N)
-    Ds = coords_to_distance_matrix(dataset.coords).astype(np.float32)
+    with annotate("gnngls.evaluate.distances"):
+        Ds = coords_to_distance_matrix(dataset.coords).astype(np.float32)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -113,15 +131,18 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
         if model is None:
             raise ValueError("guide 'regret_pred' needs a model")
         preds = predict_regret(model, dataset, batch_size=batch_size, device=dev)
-        regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
+        with annotate("gnngls.evaluate.to_matrix"):
+            regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
         init_guide = regret_mats
     else:
         init_guide = Ds
     t1 = time.time()
 
-    init_tours = batched.nearest_neighbor_batch(
-        torch.as_tensor(init_guide, device=dev)).cpu().numpy()
-    guide_stack = batched.make_guide_stack(Ds, guides, regret_mats)
+    with annotate("gnngls.construct"):
+        init_tours = batched.nearest_neighbor_batch(
+            torch.as_tensor(init_guide, device=dev)).cpu().numpy()
+    with annotate("gnngls.evaluate.guide_stack"):
+        guide_stack = batched.make_guide_stack(Ds, guides, regret_mats)
     search = dict(perturbation_moves=perturbation_moves, device=dev)
     if use_kernel:
         result = batched.run_fixed_kernel(Ds, guide_stack, init_tours, n_iters=n_iters,
@@ -132,34 +153,35 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     else:
         result = batched.run_wall_clock(Ds, guide_stack, init_tours, time_limit_s=time_limit,
                                         first_improvement=first_improvement, **search)
-    t2 = time.time()
 
-    opt = np.asarray(dataset.opt_cost, dtype=np.float64)
-    gaps = (result.best_costs / opt - 1.0) * 100.0
-    init_costs = Ds[np.arange(len(dataset))[:, None],
-                    init_tours[:, :-1], init_tours[:, 1:]].sum(-1)
-    return {
-        "gaps": gaps,
-        "mean_gap": float(gaps.mean()),
-        "best_costs": result.best_costs,
-        "best_tours": result.best_tours,
-        # the kernel traces once per outer iteration, the per-move engine per move
-        "trace_mode": "per-iteration" if use_kernel else "per-move",
-        "engine": "pallas" if use_kernel else "xla",  # the engine that ran
-        "device": str(dev),
-        "init_costs": init_costs,
-        "init_tours": init_tours,
-        "guide_stack": guide_stack,
-        "opt_costs": opt,
-        "moves": result.chunk_moves[:, -1],
-        "timings": {"inference_s": t1 - t0,
-                    "search_s": result.chunk_times[-1] - result.chunk_times[0],
-                    "total_s": t2 - t0,
-                    # torch.cuda.max_memory_allocated over the call; None on the CPU
-                    "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                                          if dev.type == "cuda" else None)},
-        "result": result,
-    }
+    with annotate("gnngls.evaluate.finish"):
+        opt = np.asarray(dataset.opt_cost, dtype=np.float64)
+        gaps = (result.best_costs / opt - 1.0) * 100.0
+        init_costs = Ds[np.arange(len(dataset))[:, None],
+                        init_tours[:, :-1], init_tours[:, 1:]].sum(-1)
+        return {
+            "gaps": gaps,
+            "mean_gap": float(gaps.mean()),
+            "best_costs": result.best_costs,
+            "best_tours": result.best_tours,
+            # the kernel traces once per outer iteration, the per-move engine per move
+            "trace_mode": "per-iteration" if use_kernel else "per-move",
+            "engine": "pallas" if use_kernel else "xla",  # the engine that ran
+            "device": str(dev),
+            "init_costs": init_costs,
+            "init_tours": init_tours,
+            "guide_stack": guide_stack,
+            "opt_costs": opt,
+            "moves": result.chunk_moves[:, -1],
+            "timings": {"inference_s": t1 - t0,
+                        "search_s": result.chunk_times[-1] - result.chunk_times[0],
+                        "total_s": time.time() - t_start,
+                        # torch.cuda.max_memory_allocated over the call; None on the CPU
+                        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                              if dev.type == "cuda" else None),
+                        "search_rounds": result.rounds},
+            "result": result,
+        }
 
 
 # Accepted moves an instance makes under the reference's 10 s/instance

@@ -13,17 +13,20 @@ wall-clock-chunked, on the per-move engine or the whole-search kernel.
   are re-derived from the tours on the host in f32, as the JAX driver does.
 
 Chunk boundaries are stamped on the host clock after the device has
-synchronised, so search-progress rows can interpolate move times.
+synchronised, so search-progress rows can interpolate move times.  Each run
+is the span "gnngls.search"; the kernel's run splits into
+"gnngls.search.upload", ".kernel" and ".fetch" (utils/profiling.py).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import local_search as ls
 from .construct import nearest_neighbor_batch  # noqa: F401  (public API)
 from .gls_whole import gls_whole
@@ -42,6 +45,9 @@ class BatchResult(NamedTuple):
     work: Optional[np.ndarray] = None  # (B, 2) LS rounds, perturbation rounds
     search_costs: Optional[np.ndarray] = None  # (B,) the search's own f32 accounting
     deadline: Optional[float] = None  # run_wall_clock's deadline, host clock
+    # per-move engine: the lock-step rounds the batch ran (local search,
+    # perturbation), over the init and every chunk; None from the kernel
+    rounds: Optional[Tuple[int, int]] = None
 
 
 def _device(device) -> torch.device:
@@ -104,9 +110,11 @@ def _per_move_result(state: ls.GLSState, times, moves) -> BatchResult:
         chunk_moves=np.stack(moves, axis=1),
         work=state.work.cpu().numpy(),
         search_costs=best,
+        rounds=state.rounds,
     )
 
 
+@annotate("gnngls.search")
 def run_fixed(Ds, guide_stack, init_tours, *, n_iters: int,
               perturbation_moves: int = 20, trace_cap: int = 4096,
               first_improvement: bool = False, device=None) -> BatchResult:
@@ -126,6 +134,7 @@ def run_fixed(Ds, guide_stack, init_tours, *, n_iters: int,
     return _per_move_result(state, [t0, t1, t2], moves)
 
 
+@annotate("gnngls.search")
 def run_wall_clock(Ds, guide_stack, init_tours, *, time_limit_s: float,
                    perturbation_moves: int = 20, chunk_iters: int = 1,
                    trace_cap: int = 4096, first_improvement: bool = False,
@@ -167,37 +176,39 @@ def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[np.ndarray]):
     return np.stack(mats, axis=1)
 
 
+@annotate("gnngls.search")
 def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
                      perturbation_moves: int = 20, k=None, device=None) -> BatchResult:
     """Fixed-budget GLS for the whole batch in one `gls_whole` call, on
     `device` (cuda unless "cpu" is asked for).  k: None or (B,) penalty
     scales (`gls_whole`)."""
-    Ds = np.ascontiguousarray(Ds, dtype=np.float32)
-    dev = _device(device)
-    D_t = torch.as_tensor(Ds, device=dev)
-    G_t = torch.as_tensor(np.ascontiguousarray(guide_stack, dtype=np.float32), device=dev)
-    T_t = torch.as_tensor(np.ascontiguousarray(init_tours, dtype=np.int32), device=dev)
-    k_t = None if k is None else _on(k, dev, torch.float32)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.time()
-    out = gls_whole(D_t, G_t, T_t, n_iters=n_iters,
-                    perturbation_moves=perturbation_moves, k=k_t)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.time()
-    tours = out.best_tours.cpu().numpy()
-    moves = out.moves.cpu().numpy().astype(np.int64)
-    B = Ds.shape[0]
-    costs = Ds[np.arange(B)[:, None], tours[:, :-1], tours[:, 1:]].sum(-1)
-    return BatchResult(
-        best_tours=tours,
-        best_costs=costs.astype(np.float64),
-        trace_costs=out.trace_costs.cpu().numpy(),
-        trace_n=np.full((B,), n_iters, np.int64),
-        chunk_times=[t0, t1],
-        chunk_moves=np.stack([np.zeros_like(moves), moves], axis=1),
-        trace_moves=out.trace_moves.cpu().numpy().astype(np.int64),
-        work=out.work.cpu().numpy(),
-        search_costs=out.best_costs.cpu().numpy(),
-    )
+    with annotate("gnngls.search.upload"):
+        Ds = np.ascontiguousarray(Ds, dtype=np.float32)
+        dev = _device(device)
+        D_t = torch.as_tensor(Ds, device=dev)
+        G_t = torch.as_tensor(np.ascontiguousarray(guide_stack, dtype=np.float32), device=dev)
+        T_t = torch.as_tensor(np.ascontiguousarray(init_tours, dtype=np.int32), device=dev)
+        k_t = None if k is None else _on(k, dev, torch.float32)
+        _sync(dev)
+    with annotate("gnngls.search.kernel"):
+        t0 = time.time()
+        out = gls_whole(D_t, G_t, T_t, n_iters=n_iters,
+                        perturbation_moves=perturbation_moves, k=k_t)
+        _sync(dev)
+        t1 = time.time()
+    with annotate("gnngls.search.fetch"):
+        tours = out.best_tours.cpu().numpy()
+        moves = out.moves.cpu().numpy().astype(np.int64)
+        B = Ds.shape[0]
+        costs = Ds[np.arange(B)[:, None], tours[:, :-1], tours[:, 1:]].sum(-1)
+        return BatchResult(
+            best_tours=tours,
+            best_costs=costs.astype(np.float64),
+            trace_costs=out.trace_costs.cpu().numpy(),
+            trace_n=np.full((B,), n_iters, np.int64),
+            chunk_times=[t0, t1],
+            chunk_moves=np.stack([np.zeros_like(moves), moves], axis=1),
+            trace_moves=out.trace_moves.cpu().numpy().astype(np.int64),
+            work=out.work.cpu().numpy(),
+            search_costs=out.best_costs.cpu().numpy(),
+        )

@@ -19,9 +19,12 @@ Per instance:
     keeps the tour if its cost is strictly below the best.
 
 With `first_improvement` every scan takes the first improving candidate in
-scan order instead of the best.  An instance whose loop has ended is masked.
-Every accepted move counts in the state's `Trace`; with a cost buffer the
-trace also records the cost after the move (cost + delta in the local
+scan order instead of the best.  An instance whose loop has ended is masked:
+the batch runs a loop's rounds in lock step until its last instance is done,
+each round followed by one host sync, and the state counts those rounds on
+the host (`GLSState.rounds`) beside each instance's own (`work`).  Every
+accepted move counts in the state's `Trace`; with a cost buffer the trace
+also records the cost after the move (cost + delta in the local
 search, the true-weight re-cost in the perturbation) at the saturating index
 min(count, cap - 1), as gnngls_tpu's `_record` does.  Every f32 expression is
 the kernel's (see search/moves.py) and tour costs are its halving-tree sums,
@@ -31,10 +34,11 @@ the same tours, moves and costs on the same inputs.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from . import moves as mv
 
 
@@ -81,6 +85,8 @@ class GLSState(NamedTuple):
     iter_i: int  # outer iterations run: the guide cycles on it
     trace: Trace
     work: torch.Tensor  # (B, 2) int32 local-search rounds, perturbation rounds
+    # the lock-step rounds the batch ran (local search, perturbation), host ints
+    rounds: Tuple[int, int] = (0, 0)
 
 
 def clone_state(state: GLSState) -> GLSState:
@@ -98,6 +104,7 @@ class LSResult(NamedTuple):
     tour: torch.Tensor  # (B, n+1) int64
     cost: torch.Tensor  # (B,) f32
     trace: Trace
+    rounds: int = 0  # the rounds the batch ran; work[:, 0] counts each instance's
 
 
 def local_search(tour: torch.Tensor, cost: torch.Tensor, D: torch.Tensor, trace: Trace,
@@ -105,7 +112,8 @@ def local_search(tour: torch.Tensor, cost: torch.Tensor, D: torch.Tensor, trace:
                  work: Optional[torch.Tensor] = None) -> LSResult:
     """Rounds of the best (or first) 2-opt, then relocate, on D (B, n, n)
     until a round makes no move, at most max_iters rounds (0: 10 n).  Updates
-    the trace, and `work` (B, 2) when given, in place."""
+    the trace, and `work` (B, 2) when given, in place; `rounds` counts the
+    rounds the batch ran, each followed by a host sync."""
     n = D.shape[1]
     if max_iters <= 0:
         max_iters = 10 * n
@@ -113,9 +121,11 @@ def local_search(tour: torch.Tensor, cost: torch.Tensor, D: torch.Tensor, trace:
         work = torch.zeros((tour.shape[0], 2), dtype=torch.int32, device=D.device)
     t = tour
     active = torch.ones(t.shape[0], dtype=torch.bool, device=D.device)
+    rounds = 0
     for _ in range(max_iters):
         if not bool(active.any()):
             break
+        rounds += 1
         work[:, 0] += active.int()
         d, i, j, found = mv.two_opt_a2a(mv.tour_matrix(D, t), first_improvement)
         f1 = active & found
@@ -128,19 +138,21 @@ def local_search(tour: torch.Tensor, cost: torch.Tensor, D: torch.Tensor, trace:
         cost = torch.where(f2, cost + d, cost)
         _record(trace, cost, f2)
         active = f1 | f2
-    return LSResult(t, cost, trace)
+    return LSResult(t, cost, trace, rounds)
 
 
 def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improvement=False):
     """At most max_iters rounds; updates P, the trace and work in place and
-    returns the tours and costs."""
+    returns the tours, the costs and the rounds the batch ran."""
     B, n, _ = D.shape
     b = torch.arange(B, device=D.device)
     made = torch.zeros(B, dtype=torch.int32, device=D.device)
+    rounds = 0
     for _ in range(max_iters):
         act = made < pm
         if not bool(act.any()):
             break
+        rounds += 1
         work[:, 1] += act.int()
         a, c = t[:, :-1], t[:, 1:]
         util = Gm[b[:, None], a, c] / (1.0 + P[b[:, None], a, c])
@@ -165,7 +177,7 @@ def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improv
             cost = torch.where(acc, mv.tour_costs(D, t), cost)
             _record(trace, cost, acc)
             made += acc.int()
-    return t, cost
+    return t, cost, rounds
 
 
 def penalty_scale(cost: torch.Tensor, n: int) -> torch.Tensor:
@@ -189,10 +201,11 @@ def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[i
         k = torch.as_tensor(k, dtype=torch.float32, device=D.device).expand(B).clone()
     trace = make_trace(B, trace_cap, D.device)
     work = torch.zeros((B, 2), dtype=torch.int32, device=D.device)
-    t, cost, _ = local_search(t, cost, D, trace, max_ls_iters, first_improvement, work)
-    return GLSState(t, cost, t, cost, torch.zeros_like(D), k, 0, trace, work)
+    t, cost, _, rounds = local_search(t, cost, D, trace, max_ls_iters, first_improvement, work)
+    return GLSState(t, cost, t, cost, torch.zeros_like(D), k, 0, trace, work, (rounds, 0))
 
 
+@annotate("gnngls.search.iteration")
 def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
                   perturbation_moves: int, max_pert_iters: int = 0, max_ls_iters: int = 0,
                   first_improvement: bool = False) -> GLSState:
@@ -204,16 +217,20 @@ def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
     if max_pert_iters <= 0:
         max_pert_iters = 3 * perturbation_moves
     guide = guides[:, state.iter_i % guides.shape[1]]
-    t, cost = _perturbation(D, guide, state.penalties, state.k, state.tour, state.cost,
-                            state.trace, state.work, perturbation_moves, max_pert_iters,
-                            first_improvement)
-    t, cost, _ = local_search(t, cost, D, state.trace, max_ls_iters, first_improvement,
-                              state.work)
+    with annotate("gnngls.search.perturb"):
+        t, cost, p_rounds = _perturbation(D, guide, state.penalties, state.k, state.tour,
+                                          state.cost, state.trace, state.work,
+                                          perturbation_moves, max_pert_iters, first_improvement)
+    with annotate("gnngls.search.ls"):
+        t, cost, _, ls_rounds = local_search(t, cost, D, state.trace, max_ls_iters,
+                                             first_improvement, state.work)
     better = cost < state.best_cost
     return state._replace(tour=t, cost=cost,
                           best_tour=torch.where(better[:, None], t, state.best_tour),
                           best_cost=torch.where(better, cost, state.best_cost),
-                          iter_i=state.iter_i + 1)
+                          iter_i=state.iter_i + 1,
+                          rounds=(state.rounds[0] + ls_rounds,
+                                  state.rounds[1] + p_rounds))
 
 
 def guided_local_search(D: torch.Tensor, guides: torch.Tensor, init_tours: torch.Tensor, *,

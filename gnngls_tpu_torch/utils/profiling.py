@@ -2,8 +2,43 @@
 
 `device_trace` records host and device timelines with torch.profiler (the
 device's when CUDA is available) and exports a Chrome trace, readable in
-Perfetto or chrome://tracing; `annotate` and `step_annotation` name regions
-on that timeline, and on the card also as NVTX ranges.
+Perfetto or chrome://tracing; `annotate` names a region on that timeline,
+and on the card also as an NVTX range.
+
+The program's own spans are `annotate` regions, recorded only while a
+profiler listens (torch.profiler records the regions, an Nsight tool the
+NVTX ranges); there is no other switch.  Their names and nesting:
+
+    gnngls.dataset               TSPDataset.from_arrays
+      gnngls.dataset.features    edge_features (its own distance matrices)
+    gnngls.dataset.batch         TSPDataset.get_scaled_batch (also in predict)
+    gnngls.evaluate              the whole evaluate() call
+      gnngls.evaluate.distances  the distance matrices the search uses
+      gnngls.predict             predict_regret
+        gnngls.dataset.batch     a batch's scaled features
+        gnngls.predict.forward   the copy to the device and the model: enqueue
+        gnngls.predict.fetch     the copy back: the host waits on the device
+        gnngls.predict.unscale   inverse scaling, clamp at 0
+      gnngls.evaluate.to_matrix  the edge vectors as (n, n) matrices
+      gnngls.construct           nearest neighbour, its copies in and back
+      gnngls.evaluate.guide_stack
+      gnngls.search              run_fixed_kernel / run_fixed / run_wall_clock
+        gnngls.search.upload     the kernel's inputs copied to the device
+        gnngls.search.kernel     the kernel's launch through its synchronize
+        gnngls.search.fetch      the copies back, f32 tour costs on the host
+        gnngls.search.iteration  an outer iteration of the per-move engine
+          gnngls.search.perturb  the perturbation's rounds
+          gnngls.search.ls       the local search's rounds
+      gnngls.evaluate.finish     gaps, initial costs, the result
+
+On the CPU the kernel's twin runs the per-move engine's iterations, so
+their spans nest in gnngls.search.kernel there.  No span opens inside a
+round of the per-move engine, the model's forward or a training step.
+
+Counter: the per-move engine counts on the host the lock-step rounds the
+batch ran, each followed by one host sync: `GLSState.rounds`,
+`BatchResult.rounds` and evaluate's `timings["search_rounds"]`, as (local
+search, perturbation), beside each instance's own rounds in `work`.
 """
 
 from __future__ import annotations
@@ -31,7 +66,7 @@ def device_trace(logdir):
 @contextlib.contextmanager
 def annotate(name: str):
     """A named region: a profiler record_function, and an NVTX range when
-    CUDA is available."""
+    CUDA is available.  Also a decorator, a region a call."""
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
@@ -41,8 +76,3 @@ def annotate(name: str):
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
-
-
-def step_annotation(name: str, step: int):
-    """The region f"{name}#{step}", so repeated steps line up in a viewer."""
-    return annotate(f"{name}#{step}")

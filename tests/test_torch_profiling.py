@@ -1,5 +1,5 @@
 """utils/profiling.py on the CPU: `device_trace` exports a Chrome trace into
-its directory, holding the regions `annotate` and `step_annotation` name
+its directory, holding the regions nested `annotate` calls name
 (gnngls_tpu/utils/profiling.py's API over torch.profiler)."""
 
 import json
@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from gnngls_tpu_torch.search import batched
-from gnngls_tpu_torch.utils.profiling import annotate, device_trace, step_annotation
+from gnngls_tpu_torch.utils.profiling import annotate, device_trace
 
 
 def _events(logdir):
@@ -25,7 +25,7 @@ def test_device_trace_exports_the_annotated_regions(tmp_path):
     with device_trace(tmp_path / "trace"):
         with annotate("search"):
             for step in range(2):
-                with step_annotation("gls", step):
+                with annotate(f"gls#{step}"):
                     batched.run_fixed_kernel(D, D[:, None], tour, n_iters=1, device="cpu")
     events = _events(tmp_path / "trace")
     names = {e.get("name") for e in events}
@@ -38,7 +38,7 @@ def test_device_trace_exports_the_annotated_regions(tmp_path):
 
 
 def test_annotate_outside_a_trace_is_harmless(tmp_path):
-    with annotate("alone"), step_annotation("step", 3):
+    with annotate("alone"), annotate("step#3"):
         assert torch.ones(3).sum() == 3
     with device_trace(tmp_path) as prof:
         assert prof is not None

@@ -1,0 +1,146 @@
+"""The program's spans and its lock-step round counter, on the CPU.
+
+`evaluate` runs under torch.profiler on the whole-search kernel's twin (a
+fixed n_iters) and on the per-move engine (a deadline), and the recorded
+"gnngls.*" regions must form utils/profiling.py's tree: the names, each
+one's parent, no torch operator left in `gnngls.evaluate`'s own time, no
+span inside a round of the per-move engine or the model.  The counter
+`timings["search_rounds"]` is set on the per-move engine only, bounds each
+instance's `work`, and equals it for a batch of one.  The profiler changes
+no tour or cost.
+"""
+
+import pathlib
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gnngls_tpu_torch import evaluate as tev
+from gnngls_tpu_torch.data import dataset as tds
+from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TSP10 = ROOT / "data" / "tsp10"
+
+# span -> its parent span ("" for none), on both engines
+TREE = {
+    "gnngls.dataset": "",
+    "gnngls.dataset.features": "gnngls.dataset",
+    "gnngls.evaluate": "",
+    "gnngls.evaluate.distances": "gnngls.evaluate",
+    "gnngls.predict": "gnngls.evaluate",
+    "gnngls.dataset.batch": "gnngls.predict",
+    "gnngls.predict.forward": "gnngls.predict",
+    "gnngls.predict.fetch": "gnngls.predict",
+    "gnngls.predict.unscale": "gnngls.predict",
+    "gnngls.evaluate.to_matrix": "gnngls.evaluate",
+    "gnngls.construct": "gnngls.evaluate",
+    "gnngls.evaluate.guide_stack": "gnngls.evaluate",
+    "gnngls.search": "gnngls.evaluate",
+    "gnngls.search.perturb": "gnngls.search.iteration",
+    "gnngls.search.ls": "gnngls.search.iteration",
+    "gnngls.evaluate.finish": "gnngls.evaluate",
+}
+KERNEL = {"gnngls.search.upload": "gnngls.search", "gnngls.search.kernel": "gnngls.search",
+          "gnngls.search.fetch": "gnngls.search",
+          # the kernel's CPU twin runs the per-move engine's iterations
+          "gnngls.search.iteration": "gnngls.search.kernel"}
+PER_MOVE = {"gnngls.search.iteration": "gnngls.search"}
+ROUNDS = ("gnngls.search.perturb", "gnngls.search.ls")
+
+
+def _model():
+    torch.manual_seed(0)
+    return RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).eval()
+
+
+def _dataset(k):
+    data = dict(np.load(TSP10 / "instances.npz"))
+    idx = np.loadtxt(TSP10 / "test.txt", dtype=np.int64)[:k]
+    return tds.TSPDataset.from_arrays(data, idx, tds.load_scalers(TSP10 / "scalers.json"))
+
+
+def _spans(prof):
+    """(name, nearest gnngls ancestor's name or "") for every recorded event."""
+    out = []
+    for ev in prof.events():
+        up = ev.cpu_parent
+        while up is not None and not up.name.startswith("gnngls."):
+            up = up.cpu_parent
+        out.append((ev.name, "" if up is None else up.name))
+    return out
+
+
+def _profiled(k, **kw):
+    model = _model()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ds = _dataset(k)
+        out = tev.evaluate(ds, model=model, perturbation_moves=3, device="cpu", **kw)
+    return out, _spans(prof)
+
+
+@pytest.mark.parametrize("engine", ["kernel", "per_move"])
+def test_span_tree_and_rounds(engine):
+    kw = dict(n_iters=3) if engine == "kernel" else dict(time_limit=0.3)
+    out, spans = _profiled(3, **kw)
+    res = out["result"]
+    want = dict(TREE, **(KERNEL if engine == "kernel" else PER_MOVE))
+    gnngls = [(n, p) for n, p in spans if n.startswith("gnngls.")]
+    assert {n for n, _ in gnngls} == set(want)
+    for name, parent in gnngls:
+        assert parent == want[name], (name, parent)
+    # every torch operator inside evaluate runs in a named step
+    assert not [n for n, p in spans if n.startswith("aten::") and p == "gnngls.evaluate"]
+    # no span opens inside a round of the per-move engine or in the model
+    assert not [n for n, p in gnngls if p in ROUNDS + ("gnngls.predict.forward",)]
+    iters = sum(n == "gnngls.search.iteration" for n, _ in gnngls)
+    chunks = len(res.chunk_times) - 1
+    assert iters == (3 if engine == "kernel" else chunks)
+    assert sum(n == "gnngls.search.ls" for n, _ in gnngls) == iters
+    assert sum(n == "gnngls.evaluate" for n, _ in gnngls) == 1
+
+    rounds = out["timings"]["search_rounds"]
+    if engine == "kernel":
+        assert rounds is None and res.rounds is None
+        again = tev.evaluate(_dataset(3), model=_model(), perturbation_moves=3, device="cpu",
+                             **kw)
+    else:
+        assert isinstance(rounds, tuple) and all(isinstance(r, int) for r in rounds)
+        assert rounds == res.rounds
+        for kind in (0, 1):  # the batch runs as many rounds as its slowest instance, or more
+            assert rounds[kind] >= res.work[:, kind].max() > 0
+        assert res.work.sum() <= len(res.work) * sum(rounds)
+        # as many iterations with the profiler off: the same bits and rounds
+        again = tev.evaluate(_dataset(3), model=_model(), perturbation_moves=3, device="cpu",
+                             n_iters=chunks, engine="xla")
+        assert again["timings"]["search_rounds"] == rounds
+    for key in ("best_tours", "best_costs", "init_tours", "guide_stack"):
+        np.testing.assert_array_equal(out[key], again[key])
+    np.testing.assert_array_equal(res.work, again["result"].work)
+
+
+def test_rounds_of_one_instance_equal_its_work():
+    out = tev.evaluate(_dataset(1), model=_model(), perturbation_moves=3, device="cpu",
+                       n_iters=4, engine="xla")
+    assert out["timings"]["search_rounds"] == tuple(int(w) for w in out["result"].work[0])
+
+
+def test_total_s_covers_the_whole_call(monkeypatch):
+    real = tev.coords_to_distance_matrix
+
+    def slow(coords):
+        time.sleep(0.2)
+        return real(coords)
+
+    monkeypatch.setattr(tev, "coords_to_distance_matrix", slow)
+    ds = _dataset(2)
+    t0 = time.time()
+    out = tev.evaluate(ds, model=_model(), perturbation_moves=3, device="cpu", n_iters=2)
+    wall = time.time() - t0
+    tm = out["timings"]
+    assert tm["total_s"] >= 0.2 + tm["inference_s"] + tm["search_s"]
+    assert tm["total_s"] <= wall
+

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..utils import tour_to_edge_vector
 
@@ -28,6 +29,22 @@ def coords_to_distance_matrix(coords: np.ndarray) -> np.ndarray:
     """(..., n, 2) -> (..., n, n) Euclidean weights, f32."""
     d = coords[..., :, None, :] - coords[..., None, :, :]
     return np.sqrt((d * d).sum(-1)).astype(np.float32)
+
+
+def coords_to_distance_tensor(coords: np.ndarray, device) -> torch.Tensor:
+    """`coords_to_distance_matrix` built on `device`: the same (..., n, n) f32
+    bits, as a tensor there.
+
+    The differences, squares and their sum run in the coordinates' precision
+    as separate operations (no fused multiply-add), as NumPy runs them; the
+    square root runs in f64 and is rounded once to f32.  f64's 53 bits are at
+    least twice f32's 24 plus two, so that gives the correctly rounded f32
+    root, which NumPy's f32 sqrt gives and torch's f32 sqrt on the CPU does
+    not always."""
+    c = torch.as_tensor(np.asarray(coords), device=device)
+    d = c[..., :, None, :] - c[..., None, :, :]
+    sq = d * d
+    return (sq[..., 0] + sq[..., 1]).double().sqrt_().float()
 
 
 def resolve_solver(n_nodes: int, solver: Optional[str] = None) -> str:

@@ -10,9 +10,11 @@ scripts/test.py).
   4. gap = (best_cost / opt_cost - 1) * 100, and search-progress rows.
 
 Everything runs on `device`, "cuda" unless the caller asks for "cpu"; without
-a card and without device="cpu" the entry points raise.  On the CPU the
-kernels' plain twins run.  The engine names are gnngls_tpu's.  "auto" takes
-the whole-search engine wherever it can run (a fixed budget,
+a card and without device="cpu" the entry points raise.  `evaluate` builds
+the distance matrices there, the bits of `coords_to_distance_matrix`, and
+keeps them there for the construction, the search and the tour costs.  On
+the CPU the kernels' plain twins run.  The engine names are gnngls_tpu's.
+"auto" takes the whole-search engine wherever it can run (a fixed budget,
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
 
@@ -34,7 +36,7 @@ import torch
 
 from .core.graph import edge_vector_to_matrix
 from .data.dataset import TSPDataset
-from .data.generate import coords_to_distance_matrix
+from .data.generate import coords_to_distance_matrix, coords_to_distance_tensor
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
 from .search import batched, gls_whole
 from .utils.profiling import annotate
@@ -103,7 +105,9 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     `timings` holds inference_s (predictions and their matrices), search_s
     (the search's chunk stamps), total_s (the whole call), the peak device
     memory and, from the per-move engine, search_rounds: the lock-step rounds
-    the batch ran (local search, perturbation); None from the kernel.
+    the batch ran (local search, perturbation); None from the kernel;
+    d_host_copies: the whole distance tensors that crossed between host and
+    device (1 where a "weight" guide brings D to the host, else 0).
     """
     t_start = time.time()
     if engine not in ENGINES:
@@ -121,7 +125,7 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     use_kernel = engine == "pallas" or (engine == "auto" and n_iters is not None
                                         and not first_improvement and n <= gls_whole.MAX_N)
     with annotate("gnngls.evaluate.distances"):
-        Ds = coords_to_distance_matrix(dataset.coords).astype(np.float32)
+        Ds = coords_to_distance_tensor(dataset.coords, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -139,10 +143,12 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     t1 = time.time()
 
     with annotate("gnngls.construct"):
-        init_tours = batched.nearest_neighbor_batch(
-            torch.as_tensor(init_guide, device=dev)).cpu().numpy()
+        init_t = batched.nearest_neighbor_batch(torch.as_tensor(init_guide, device=dev))
+        init_tours = init_t.cpu().numpy()
     with annotate("gnngls.evaluate.guide_stack"):
-        guide_stack = batched.make_guide_stack(Ds, guides, regret_mats)
+        # the guide stack stays on the host; only a "weight" guide fetches D
+        D_host = Ds.cpu().numpy() if "weight" in guides else None
+        guide_stack = batched.make_guide_stack(D_host, guides, regret_mats)
     search = dict(perturbation_moves=perturbation_moves, device=dev)
     if use_kernel:
         result = batched.run_fixed_kernel(Ds, guide_stack, init_tours, n_iters=n_iters,
@@ -157,8 +163,7 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     with annotate("gnngls.evaluate.finish"):
         opt = np.asarray(dataset.opt_cost, dtype=np.float64)
         gaps = (result.best_costs / opt - 1.0) * 100.0
-        init_costs = Ds[np.arange(len(dataset))[:, None],
-                        init_tours[:, :-1], init_tours[:, 1:]].sum(-1)
+        init_costs = batched.edge_lengths(Ds, init_t).sum(-1)
         return {
             "gaps": gaps,
             "mean_gap": float(gaps.mean()),
@@ -179,7 +184,8 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
                         # torch.cuda.max_memory_allocated over the call; None on the CPU
                         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                               if dev.type == "cuda" else None),
-                        "search_rounds": result.rounds},
+                        "search_rounds": result.rounds,
+                        "d_host_copies": int(D_host is not None)},
             "result": result,
         }
 

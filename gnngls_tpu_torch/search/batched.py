@@ -10,7 +10,8 @@ wall-clock-chunked, on the per-move engine or the whole-search kernel.
 * `run_fixed_kernel` is the counterpart of gnngls_tpu's `run_fixed_pallas`:
   the whole batch and budget run in one launch of the whole-GLS kernel (its
   plain twin on the CPU), traced once per outer iteration, and final costs
-  are re-derived from the tours on the host in f32, as the JAX driver does.
+  are re-derived from the tours in f32, as gnngls_tpu's `run_fixed_pallas`
+  does: the edge lengths are gathered where D lives and summed on the host.
 
 Chunk boundaries are stamped on the host clock after the device has
 synchronised, so search-progress rows can interpolate move times.  Each run
@@ -67,6 +68,15 @@ def _on(x, dev, dtype) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.to(device=dev, dtype=dtype)
     return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def edge_lengths(Ds: torch.Tensor, tours) -> np.ndarray:
+    """(B, n) f32 lengths of the tours' (B, n+1) edges, gathered from Ds
+    (B, n, n) on its device and fetched.  Their `.sum(-1)` on the host is
+    the f32 tour cost, in the order of a host gather's sum."""
+    t = _on(tours, Ds.device, torch.long)
+    b = torch.arange(Ds.shape[0], device=Ds.device)[:, None]
+    return Ds[b, t[:, :-1], t[:, 1:]].cpu().numpy()
 
 
 def _tensors(dev, Ds, guide_stack, init_tours=None):
@@ -180,14 +190,14 @@ def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[np.ndarray]):
 def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
                      perturbation_moves: int = 20, k=None, device=None) -> BatchResult:
     """Fixed-budget GLS for the whole batch in one `gls_whole` call, on
-    `device` (cuda unless "cpu" is asked for).  k: None or (B,) penalty
-    scales (`gls_whole`)."""
+    `device` (cuda unless "cpu" is asked for).  Ds, guide_stack and
+    init_tours are arrays or tensors: a tensor on `device` is kept, an
+    array is copied there.  k: None or (B,) penalty scales (`gls_whole`)."""
     with annotate("gnngls.search.upload"):
-        Ds = np.ascontiguousarray(Ds, dtype=np.float32)
         dev = _device(device)
-        D_t = torch.as_tensor(Ds, device=dev)
-        G_t = torch.as_tensor(np.ascontiguousarray(guide_stack, dtype=np.float32), device=dev)
-        T_t = torch.as_tensor(np.ascontiguousarray(init_tours, dtype=np.int32), device=dev)
+        D_t = _on(Ds, dev, torch.float32).contiguous()
+        G_t = _on(guide_stack, dev, torch.float32).contiguous()
+        T_t = _on(init_tours, dev, torch.int32).contiguous()
         k_t = None if k is None else _on(k, dev, torch.float32)
         _sync(dev)
     with annotate("gnngls.search.kernel"):
@@ -199,8 +209,8 @@ def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
     with annotate("gnngls.search.fetch"):
         tours = out.best_tours.cpu().numpy()
         moves = out.moves.cpu().numpy().astype(np.int64)
-        B = Ds.shape[0]
-        costs = Ds[np.arange(B)[:, None], tours[:, :-1], tours[:, 1:]].sum(-1)
+        B = D_t.shape[0]
+        costs = edge_lengths(D_t, out.best_tours).sum(-1)
         return BatchResult(
             best_tours=tours,
             best_costs=costs.astype(np.float64),

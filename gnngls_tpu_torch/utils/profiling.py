@@ -13,7 +13,7 @@ NVTX ranges); there is no other switch.  Their names and nesting:
       gnngls.dataset.features    edge_features (its own distance matrices)
     gnngls.dataset.batch         TSPDataset.get_scaled_batch (also in predict)
     gnngls.evaluate              the whole evaluate() call
-      gnngls.evaluate.distances  the distance matrices the search uses
+      gnngls.evaluate.distances  the distance matrices, built on the evaluate's device
       gnngls.predict             predict_regret
         gnngls.dataset.batch     a batch's scaled features
         gnngls.predict.forward   the copy to the device and the model: enqueue

@@ -129,13 +129,13 @@ def test_rounds_of_one_instance_equal_its_work():
 
 
 def test_total_s_covers_the_whole_call(monkeypatch):
-    real = tev.coords_to_distance_matrix
+    real = tev.coords_to_distance_tensor
 
-    def slow(coords):
+    def slow(coords, device):
         time.sleep(0.2)
-        return real(coords)
+        return real(coords, device)
 
-    monkeypatch.setattr(tev, "coords_to_distance_matrix", slow)
+    monkeypatch.setattr(tev, "coords_to_distance_tensor", slow)
     ds = _dataset(2)
     t0 = time.time()
     out = tev.evaluate(ds, model=_model(), perturbation_moves=3, device="cpu", n_iters=2)

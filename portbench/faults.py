@@ -3,6 +3,11 @@ and the control put in the program's place.  Each is a list of (module,
 attribute, replacement) for the caller to set and undo (pytest's
 monkeypatch in the CPU tests; `planted` in portbench.readings on the card).
 
+A cell's faults are its runner's: each module under portbench/runners/
+declares `faults(config, root, batch)`, a table from fault name to triples
+made with the shared helpers below, so that a runner added for another
+model brings its own table, and its own control, in its own file.
+
   half_batch       half of the batch left out, the mean taken over the rest
                    (inference: the first half predicted and repeated; a train
                    step on the first half of the batch)
@@ -10,24 +15,25 @@ monkeypatch in the CPU tests; `planted` in portbench.readings on the card).
                    outer iterations, the train step's update)
   altered_answer   an answer altered where it is produced (two cities of
                    every best tour swapped)
-  control_tf32     the plain reference with TF32 products predicting in the
-                   program's place
+  control_tf32     the runner's plain reference with TF32 products predicting
+                   in the program's place
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
 import pathlib
 import time
 
 import numpy as np
 
+from portbench import manifest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _half_predict(real):
+def half_predict(real):
     def predict(model, dataset, **kw):
         h = (len(dataset) + 1) // 2
         sub = dataclasses.replace(dataset, coords=dataset.coords[:h],
@@ -39,14 +45,14 @@ def _half_predict(real):
     return predict
 
 
-def _half_step(real):
+def half_step(real):
     def step(model, opt, x, y, **kw):
         h = (len(x) + 1) // 2
         return real(model, opt, x[:h], y[:h], **kw)
     return step
 
 
-def _no_step(model, opt, x, y, **kw):
+def no_step(model, opt, x, y, **kw):
     import torch
 
     from gnngls_tpu_torch.train.step import loss_fn
@@ -55,18 +61,18 @@ def _no_step(model, opt, x, y, **kw):
         return loss_fn(model(x, gat_impl=kw.get("gat_impl", "fast")), y)
 
 
-def _search_unchanged(real):
+def search_unchanged(real):
     def gls(Ds, guides, init, *, n_iters, **kw):
         return real(Ds, guides, init, n_iters=0, **kw)
     return gls
 
 
-def _iteration_unchanged(state, D, G, **kw):
+def iteration_unchanged(state, D, G, **kw):
     time.sleep(0.05)  # an iteration's time, so that a deadline runs few
     return state._replace(iter_i=state.iter_i + 1)
 
 
-def _altered(real):
+def altered(real):
     def gls(*a, **kw):
         out = real(*a, **kw)
         out.best_tours[:, [1, 2]] = out.best_tours[:, [2, 1]]
@@ -74,38 +80,12 @@ def _altered(real):
     return gls
 
 
-def _tf32_predict(config: dict, root: pathlib.Path, batch: int):
-    from portbench.reference import regret_gat as ref
-
-    def predict(model, dataset, *, device=None, **kw):
-        dev = device or "cuda"
-        weights = ref.load_weights(root / config["checkpoint"], dev)
-        scalers = json.loads((root / config["scalers"]).read_text())
-        return ref.predict(weights, dataset.coords, scalers, n_heads=config["model"]["n_heads"],
-                           depth=config["depth"], prec="tf32", device=dev, batch=batch)
-    return predict
-
-
 def patches(fault: str, runner: str, config: dict, root: pathlib.Path = ROOT,
             batch: int = 1):
     """(module, attribute, replacement) triples that plant `fault` for a cell
-    of `runner` ("evaluate" or "train"); `batch` is the instances the
-    control predicts at a time."""
-    from gnngls_tpu_torch import evaluate
-    from gnngls_tpu_torch.search import batched, local_search
-    from gnngls_tpu_torch.train import step
-
-    if runner == "train":
-        table = {"half_batch": [(step, "train_step", _half_step(step.train_step))],
-                 "unchanged_state": [(step, "train_step", _no_step)]}
-    else:
-        table = {
-            "half_batch": [(evaluate, "predict_regret", _half_predict(evaluate.predict_regret))],
-            "unchanged_state": [(batched, "gls_whole", _search_unchanged(batched.gls_whole)),
-                                (local_search, "gls_iteration", _iteration_unchanged)],
-            "altered_answer": [(batched, "gls_whole", _altered(batched.gls_whole))],
-            "control_tf32": [(evaluate, "predict_regret", _tf32_predict(config, root, batch))],
-        }
+    of `runner`, from the table of portbench/runners/<runner>.py under
+    `root`; `batch` is the instances the control predicts at a time."""
+    table = manifest.load_file(root, "runners", runner).faults(config, root, batch)
     if fault not in table:
         raise ValueError(f"no fault {fault!r} for a {runner} cell; have {sorted(table)}")
     return table[fault]

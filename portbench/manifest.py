@@ -9,6 +9,13 @@ configuration and traffic; the files hold the rest.
                                       parameters, and unit, source, layer and
                                       moves as BENCHMARK.json gives them
   portbench/readers/<reader>.py       a reader: read(run, **params) -> number or None
+  portbench/runners/<runner>.py       a traffic mix's runner (its "runner"): the
+                                      Runner, the names its check returns
+                                      (LIMITS), the model widths its
+                                      configurations keep (PUBLISHED) and its
+                                      faults and control (faults)
+  portbench/reference/<model>.py      a model's plain reference, which its
+                                      runner calls
 
 A cell, configuration, traffic mix or metric is added by adding files and
 entries; nothing here names one.

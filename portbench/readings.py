@@ -6,9 +6,10 @@
 For each of --seeds: the steps or requests that this seed's check compares,
 in a window of the check's `window_requests`, run through the program as the
 window runs them, and the check's numbers, as `portbench.run` computes them.
-With --fault, a fault or the control of portbench/faults.py is planted under
-the timed path for them (`control_tf32`: the plain reference with TF32
-products predicting in the program's place).  --control_seeds is the train
+With --fault, a fault or the control from the `faults` table of the cell's
+runner (portbench/faults.py) is planted under the timed path for them
+(`control_tf32`: the runner's plain reference with TF32 products predicting
+in the program's place).  --control_seeds is the train
 runner's control: the plain reference in TF32 put in the program's place on
 the start's steps.  One JSON line a seed on standard output, then the least
 and the largest reading of each number.  Set-up is shared, and the window's

@@ -79,3 +79,12 @@ def model_flops_per_instance(n: int, embed: int, hidden: int, depth: int, in_dim
     E = n * (n - 1) // 2
     per_layer = 2 * embed * embed + 2 * 2 * embed + 2 * embed * hidden * 2
     return float(E * (depth * per_layer + 2 * in_dim * embed + 2 * embed * out_dim))
+
+
+def regret_gat_flops(cfg: dict) -> float:
+    """model_flops_per_instance of a configuration of the edge-regret GAT: its
+    "model" widths and depth at its instances' n."""
+    m = cfg["model"]
+    depth = m["n_heads"] if m.get("depth_from_heads", True) else m["n_layers"]
+    return model_flops_per_instance(cfg["instances"]["n"], m["embed_dim"], m["hidden_dim"],
+                                    depth, m["in_dim"])

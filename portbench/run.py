@@ -64,6 +64,7 @@ class Run:
     gaps: Any  # per-instance gaps (%) or None
     trace: Optional[Summary]
     peaks: dict
+    model_flops: float  # the runner's model FLOPs an instance
 
     @property
     def window_s(self) -> float:
@@ -193,7 +194,8 @@ def main(argv=None, *, root: pathlib.Path = manifest.ROOT, device=None,
     dev_name = torch.cuda.get_device_name() if device != "cpu" else "cpu"
     trace = sl.summary if sl else None
     run = Run(cell, setup_s, window, requests, runner.gaps(requests), trace,
-              roofline.peaks(dev_name) if device != "cpu" else roofline.peaks("H100"))
+              roofline.peaks(dev_name) if device != "cpu" else roofline.peaks("H100"),
+              runner.model_flops_per_instance())
     metrics = {}
     for m in cell.per_layer if args.trace else cell.end_to_end:
         v = m.read(run)

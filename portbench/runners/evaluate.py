@@ -34,20 +34,79 @@ The check after the window (see `check`):
     set from both readings, and the second run on the program's guide
     matrices, held to the reference's by pred_err, where only an exact
     match will do.
+
+What is the edge-regret GAT's here is three hooks on `Runner` and three
+declarations beside it; all else is shared by every model:
+  load_model                the program's model;
+  reference_guides          the reference's guide matrices for the sampled
+                            lanes, from the coordinates;
+  model_flops_per_instance  the model's FLOPs an instance (the mfu readers);
+  LIMITS                    the names `check` returns, which a cell's limits
+                            name;
+  PUBLISHED                 the model widths a configuration run here keeps,
+                            unless its entry in BENCHMARK.json lists the key
+                            under `reduced`;
+  faults                    the cell's faults and control (portbench/faults.py).
+A configuration of another model comes with a module of its own under
+portbench/runners/, which subclasses `Runner`, overrides the hooks and
+declares the three names for its model, and a reference of its own under
+portbench/reference/.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, List, Optional
 
 import numpy as np
 from torch.profiler import record_function
 
+from portbench import faults as F
+from portbench import roofline
 from portbench import traffic as gen
 from portbench.reference import gls as ref_gls
 from portbench.reference import regret_gat as ref_model
+
+LIMITS = ("pred_err", "own_guide_differ", "init_tours_differ", "search_differ")
+PUBLISHED = {"embed_dim": 128, "hidden_dim": 512, "n_heads": 8}
+
+
+def faults(config: dict, root, batch: int) -> dict:
+    """The faults of an evaluate cell of the GAT, and its control: the GAT's
+    reference with TF32 products predicting `batch` instances at a time in
+    `predict_regret`'s place."""
+    from gnngls_tpu_torch import evaluate
+    from gnngls_tpu_torch.search import batched, local_search
+
+    return {
+        "half_batch": [(evaluate, "predict_regret", F.half_predict(evaluate.predict_regret))],
+        "unchanged_state": [(batched, "gls_whole", F.search_unchanged(batched.gls_whole)),
+                            (local_search, "gls_iteration", F.iteration_unchanged)],
+        "altered_answer": [(batched, "gls_whole", F.altered(batched.gls_whole))],
+        "control_tf32": [(evaluate, "predict_regret", _tf32_predict(config, root, batch))],
+    }
+
+
+def _tf32_predict(config: dict, root, batch: int):
+    def predict(model, dataset, *, device=None, **kw):
+        dev = device or "cuda"
+        weights = ref_model.load_weights(root / config["checkpoint"], dev)
+        scalers = json.loads((root / config["scalers"]).read_text())
+        return ref_model.predict(weights, dataset.coords, scalers,
+                                 n_heads=config["model"]["n_heads"], depth=config["depth"],
+                                 prec="tf32", device=dev, batch=batch)
+    return predict
+
+
+def guide_matrices(pred: np.ndarray, n: int) -> np.ndarray:
+    """Edge predictions (L, E), edges (u, v) u < v in lexicographic order ->
+    (L, n, n) float32 guide matrices, symmetric, 0 on the diagonal."""
+    us, vs = ref_model.edge_pairs(n)
+    guide = np.zeros((len(pred), n, n), np.float32)
+    guide[:, us, vs] = guide[:, vs, us] = pred
+    return guide
 
 
 @dataclasses.dataclass
@@ -82,13 +141,10 @@ class Runner:
         from gnngls_tpu_torch.core.scaler import load_scalers
         from gnngls_tpu_torch.data.dataset import TSPDataset
         from gnngls_tpu_torch.evaluate import evaluate
-        from gnngls_tpu_torch.models.convert import load_model
-        from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
 
         self.torch = torch
         self.TSPDataset, self.evaluate = TSPDataset, evaluate
-        self.model = load_model(self.root / self.cfg["checkpoint"],
-                                RegretGNNConfig(**self.cfg["model"]), device=self.dev)
+        self.model = self.load_model()
         self.scalers = load_scalers(self.root / self.cfg["scalers"])
         self.reseed(self.seed)
         N, n = self.src.size, self.src.n
@@ -96,6 +152,18 @@ class Runner:
         self.zeros = (np.zeros((N, E), np.float32), np.zeros((N, E), bool))
         for w in range(int(self.tr.get("warmup_requests", 1))):
             self.request(-1 - w, warmup=True)
+
+    def load_model(self):
+        """The program's model: the GAT with the configuration's checkpoint."""
+        from gnngls_tpu_torch.models.convert import load_model
+        from gnngls_tpu_torch.models.regret_gat import RegretGNNConfig
+
+        return load_model(self.root / self.cfg["checkpoint"],
+                          RegretGNNConfig(**self.cfg["model"]), device=self.dev)
+
+    def model_flops_per_instance(self) -> float:
+        """The model's forward FLOPs an instance (the mfu reader's count)."""
+        return roofline.regret_gat_flops(self.cfg)
 
     def reseed(self, seed: int) -> None:
         """Draw the requests from `seed`."""
@@ -190,18 +258,21 @@ class Runner:
                 return f"request {q.index}: a {name} tour is not a tour"
         return None
 
-    def predictions(self, coords: np.ndarray, prec: str) -> np.ndarray:
-        import json
-
+    def reference_guides(self, chosen: List[Request], prec: str) -> np.ndarray:
+        """The reference's (L, n, n) float32 guide matrices for the kept lanes
+        of the `chosen` requests, in their order: the GAT's predictions from
+        the coordinates in precision `prec`, `reference_batch` instances at a
+        time, placed by `guide_matrices`."""
+        coords = np.concatenate([self.src.coords_of(q.index)[q.kept["lanes"]] for q in chosen])
         if self.weights is None:
             self.weights = ref_model.load_weights(self.root / self.cfg["checkpoint"], self.dev)
-        weights = self.weights
         scalers = json.loads((self.root / self.cfg["scalers"]).read_text())
         m = self.cfg["model"]
         depth = m["n_heads"] if m.get("depth_from_heads", True) else m["n_layers"]
-        return ref_model.predict(weights, coords, scalers, n_heads=m["n_heads"], depth=depth,
+        pred = ref_model.predict(self.weights, coords, scalers, n_heads=m["n_heads"], depth=depth,
                                  prec=prec, device=self.dev,
                                  batch=int(self.check_spec.get("reference_batch", 1)))
+        return guide_matrices(pred, self.src.n)
 
     def search(self, D: np.ndarray, stack: np.ndarray, n_iters: List[int]):
         """The reference's construction and GLS on guide stacks (L, G, n, n):
@@ -237,11 +308,7 @@ class Runner:
                    for _ in q.kept["lanes"]]
         names = list(self.tr["guides"])
         D = ref_model.distances(coords)
-        guide = D
-        if "regret_pred" in names:
-            us, vs = ref_model.edge_pairs(self.src.n)
-            guide = np.zeros_like(D)
-            guide[:, us, vs] = guide[:, vs, us] = self.predictions(coords, "f32")
+        guide = self.reference_guides(chosen, "f32") if "regret_pred" in names else D
         stack = np.stack([guide if g == "regret_pred" else D for g in names], axis=1)
         pred_err = float(max(np.abs(prog["guides"][i] - stack[i]).max() / np.abs(stack[i]).max()
                              for i in range(len(stack))))

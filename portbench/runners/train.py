@@ -17,7 +17,7 @@ targets and Adam, from the coordinates:
                  out from its first moment before and after the step: per
                  leaf the gap between the program's norm and the
                  reference's, over the larger of the reference's leaf norm
-                 and the median leaf's norm, the worst leaf;
+                 and the median leaf's norm, the median leaf's gap;
     change_gap   the same for each leaf's change over the stage;
   last    the window's last two steps, which the reference follows from the
           program's state before them (its weights, Adam moments and count,
@@ -27,6 +27,17 @@ targets and Adam, from the coordinates:
 Leaves whose reference gradient is below a thousandth of the median leaf's
 (zero but for rounding, as a bias ahead of a BatchNorm) are left out of
 grad_gap and change_gap.
+The worst leaf's gaps go into `sample` beside them (grad_worst_leaf,
+change_worst_leaf) and are not compared: a first-layer leaf's gradient is a
+float32 sum over every edge of the batch that cancels far, so on some seeds
+either side's norm of it lies 1e-3 from a float64 witness's, as far as the
+TF32 control's worst leaf lies from the reference, while the median leaf
+stays where rounding puts it.
+
+LIMITS, PUBLISHED and `faults` declare, as in the evaluate runner, the names
+`check` returns, the GAT's widths that a configuration trained here keeps,
+and the cell's faults (portbench/faults.py); the train runner's control is
+`control`, the reference in TF32 in the program's place.
 """
 
 from __future__ import annotations
@@ -40,10 +51,22 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from portbench import faults as F
+from portbench import roofline
 from portbench import traffic as gen
 from portbench.reference import regret_gat as ref_model
 
 VANISH = 1e-3  # of the median leaf's gradient norm
+LIMITS = ("loss_gap", "grad_gap", "change_gap")
+PUBLISHED = {"embed_dim": 128, "hidden_dim": 512, "n_heads": 8}
+
+
+def faults(config: dict, root, batch: int) -> dict:
+    """The faults of a train cell of the GAT."""
+    from gnngls_tpu_torch.train import step
+
+    return {"half_batch": [(step, "train_step", F.half_step(step.train_step))],
+            "unchanged_state": [(step, "train_step", F.no_step)]}
 
 
 @dataclasses.dataclass
@@ -57,13 +80,13 @@ class Request:
     peak_bytes: int = 0
 
 
-def leaf_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], keep) -> float:
-    """The worst leaf's |norm(prog) - norm(ref)| over max(norm(ref), median
-    norm(ref)) among the leaves in `keep`."""
+def leaf_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+              keep) -> Dict[str, float]:
+    """Each leaf's |norm(prog) - norm(ref)| over max(norm(ref), median
+    norm(ref)), for the leaves in `keep`."""
     norms = {k: float(ref[k].double().norm()) for k in keep}
     med = float(np.median(list(norms.values())))
-    return max(abs(float(prog[k].double().norm()) - norms[k]) / max(norms[k], med)
-               for k in keep)
+    return {k: abs(float(prog[k].double().norm()) - norms[k]) / max(norms[k], med) for k in keep}
 
 
 class Runner:
@@ -86,6 +109,11 @@ class Runner:
         opt = make_optimizer(model)
         restore_checkpoint(ckpt, model, opt)
         return model, opt
+
+    def model_flops_per_instance(self) -> float:
+        """A forward's FLOPs an instance (the mfu.train metric counts a step
+        as three)."""
+        return roofline.regret_gat_flops(self.cfg)
 
     def setup(self) -> None:
         from gnngls_tpu_torch.core.scaler import load_scalers
@@ -221,8 +249,11 @@ class Runner:
         med = float(np.median(list(norms.values())))
         keep = [k for k, v in norms.items() if v >= VANISH * med]
         loss_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
-        return {"loss_gap": loss_gap, "grad_gap": leaf_gaps(got["grad0"], ref["grad0"], keep),
-                "change_gap": leaf_gaps(got["change"], ref["change"], keep)}
+        grad = leaf_gaps(got["grad0"], ref["grad0"], keep)
+        change = leaf_gaps(got["change"], ref["change"], keep)
+        return {"loss_gap": loss_gap, "grad_gap": float(np.median(list(grad.values()))),
+                "change_gap": float(np.median(list(change.values()))),
+                "grad_worst_leaf": max(grad.values()), "change_worst_leaf": max(change.values())}
 
     def named(self, ts) -> Dict[str, torch.Tensor]:
         """The program's per-leaf tensors under the reference's leaf names."""
@@ -240,7 +271,8 @@ class Runner:
         last = max(abs(q.loss - b) / abs(b) for q, b in zip(requests[-2:], ref["losses"]))
         self.sample_info = {"start_steps": self.steps, "last_steps": [k, k + 1],
                             "start": start, "last": {"loss_gap": last}}
-        return {**start, "loss_gap": max(start["loss_gap"], last)}
+        return {"loss_gap": max(start["loss_gap"], last), "grad_gap": start["grad_gap"],
+                "change_gap": start["change_gap"]}
 
     def readings(self, seed: int) -> dict:
         """The check's numbers for the steps drawn from `seed`, in a window of

@@ -19,6 +19,11 @@ from portbench import run as harness
 from portbench.tests import harness_root
 
 
+@pytest.fixture
+def tick_clock(monkeypatch):
+    harness_root.tick_clock(monkeypatch)
+
+
 def run_cell(tmp_path, capsys, kind, trace=0, seconds=1.0):
     """Run a tiny cell of `kind` once; (exit code, result line or None, stderr)."""
     root, name = harness_root.make(tmp_path, kind)
@@ -52,6 +57,7 @@ def test_traced_run_reports_the_cells_per_layer_metrics(tmp_path, capsys):
     assert "busy_s" in res["device"] and "window_s" in res["device"]
 
 
+@pytest.mark.usefixtures("tick_clock")
 def test_deadline_cell_is_correct(tmp_path, capsys):
     rc, res, err = run_cell(tmp_path, capsys, "deadline")
     assert rc == 0 and res["correct"], err
@@ -66,6 +72,7 @@ def test_fixed_cell_fault_is_not_correct(tmp_path, capsys, monkeypatch, fault):
     assert rc == 0 and res["correct"] is False, err
 
 
+@pytest.mark.usefixtures("tick_clock")
 def test_deadline_cell_unchanged_iterations_are_not_correct(tmp_path, capsys, monkeypatch):
     plant(monkeypatch, "unchanged_state", "evaluate")
     rc, res, err = run_cell(tmp_path, capsys, "deadline")

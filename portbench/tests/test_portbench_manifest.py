@@ -75,16 +75,14 @@ def test_cells_and_metrics_agree():
 
 
 def test_every_cell_loads_and_its_files_agree():
-    limits = {"evaluate": {"pred_err", "own_guide_differ", "init_tours_differ", "search_differ"},
-              "train": {"loss_gap", "grad_gap", "change_gap"}}
     for name in (w["name"] for w in bench()["workloads"]):
         cell = manifest.load(name)
         assert cell.end_to_end and cell.per_layer
-        assert set(cell.check["limits"]) == limits[cell.traffic["runner"]], name
+        runner = manifest.load_file(REPO, "runners", cell.traffic["runner"])
+        assert set(cell.check["limits"]) == set(runner.LIMITS), name
     for c in bench()["configs"]:
-        cfg = json.loads((REPO / c["file"]).read_text())
-        assert c["file"].startswith("portbench/") and c["reduced"] == []
-        assert cfg["model"]["embed_dim"] == 128 and cfg["model"]["hidden_dim"] == 512
+        assert c["file"].startswith("portbench/")
+    assert harness_root.pins_broken(REPO) == []
 
 
 def test_a_metric_file_that_disagrees_is_refused(tmp_path):

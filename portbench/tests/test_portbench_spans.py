@@ -81,16 +81,15 @@ def test_counter_readers():
 
 
 @pytest.mark.parametrize("kind, names", [("fixed", SPANS), ("deadline", COUNTERS)])
-def test_traced_cpu_run_reports_the_new_metrics(tmp_path, capsys, kind, names):
+def test_traced_cpu_run_reports_the_new_metrics(tmp_path, capsys, monkeypatch, kind, names):
     root, name = harness_root.make(tmp_path, kind)
     if kind == "fixed":  # a CPU request takes seconds: trace the first, not the second
         own = root / "portbench" / "workloads" / f"{name}.json"
         spec = json.loads(own.read_text())
         spec["trace"]["slice"] = {"wait": 0, "warmup": 0, "active": 1}
         own.write_text(json.dumps(spec))
-    else:  # a deadline that outlasts the initial local search on a busy CPU
-        mix = root / "portbench" / "traffic" / f"tiny_{kind}.json"
-        mix.write_text(json.dumps(dict(json.loads(mix.read_text()), time_limit=3.0)))
+    else:  # iterations past the initial local search, however busy the CPU
+        harness_root.tick_clock(monkeypatch)
     rc = harness.main(["--workload", name, "--seed", "3000000019", "--seconds", "1",
                        "--trace", "1"], root=root, device="cpu", t_start=time.time())
     out = capsys.readouterr()

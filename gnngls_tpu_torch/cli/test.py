@@ -3,8 +3,11 @@
 The flags of gnngls_tpu/cli/test.py (reference scripts/test.py).  data_path
 is a split file next to instances.npz and scalers.json (or scalers.pkl), or
 a reference listing of gpickles; model_path a gnngls_tpu npz checkpoint or a
-reference .pt checkpoint, with params.json beside it.  The default budget is
-the reference's: 10 s of wall clock (`--time_limit`), here for the whole
+reference .pt checkpoint, with params.json beside it.  A params.json with
+"arch": "gated_gcn" names the residual gated GCN instead, its widths under
+`GatedGCNConfig`'s names, and model_path an npz of its state-dict arrays
+(`models.gated_gcn.load_model`); without "arch" it is the GAT.  The default
+budget is the reference's: 10 s of wall clock (`--time_limit`), here for the whole
 batch at once; `--n_iters` fixes the outer iterations instead, and
 `--protocol_10s` calibrates them to the reference's 10 s move counts.
 `--device` defaults to cuda; `--use_gpu` is accepted for reference-CLI
@@ -15,6 +18,7 @@ interop and changes nothing.
 """
 
 import argparse
+import dataclasses
 import json
 import pathlib
 
@@ -47,6 +51,7 @@ def main(argv=None):
 
     from .. import evaluate as ev
     from ..data import dataset as ds
+    from ..models import gated_gcn
     from ..models.convert import load_model
     from ..models.regret_gat import RegretGNNConfig
 
@@ -62,19 +67,27 @@ def main(argv=None):
     model = None
     if "regret_pred" in args.guides:
         pj = json.load(open(args.model_path.parent / "params.json"))
-        if "efeat_drop_idx" in pj:
-            test_set.feat_drop_idx = list(pj["efeat_drop_idx"])
-        cfg = RegretGNNConfig(
-            in_dim=test_set.feat_dim, embed_dim=pj["embed_dim"], out_dim=1,
-            n_layers=pj["n_layers"], n_heads=pj["n_heads"],
-            depth_from_heads=pj.get("depth_from_heads", True))
-        if args.model_path.suffix == ".pt":
-            from ..models import torch_import
+        arch = pj.get("arch", "regret_gat")
+        if arch == "gated_gcn":
+            names = {f.name for f in dataclasses.fields(gated_gcn.GatedGCNConfig)}
+            cfg = gated_gcn.GatedGCNConfig(**{k: v for k, v in pj.items() if k in names})
+            model = gated_gcn.load_model(args.model_path, cfg, device=args.device)
+        elif arch == "regret_gat":
+            if "efeat_drop_idx" in pj:
+                test_set.feat_drop_idx = list(pj["efeat_drop_idx"])
+            cfg = RegretGNNConfig(
+                in_dim=test_set.feat_dim, embed_dim=pj["embed_dim"], out_dim=1,
+                n_layers=pj["n_layers"], n_heads=pj["n_heads"],
+                depth_from_heads=pj.get("depth_from_heads", True))
+            if args.model_path.suffix == ".pt":
+                from ..models import torch_import
 
-            model, _ = torch_import.load_checkpoint(args.model_path, cfg,
-                                                      device=args.device)
+                model, _ = torch_import.load_checkpoint(args.model_path, cfg,
+                                                          device=args.device)
+            else:
+                model = load_model(args.model_path, cfg, device=args.device)
         else:
-            model = load_model(args.model_path, cfg, device=args.device)
+            raise SystemExit(f"unknown arch {arch!r} in {args.model_path.parent / 'params.json'}")
 
     n_iters = args.n_iters
     if args.protocol_10s:

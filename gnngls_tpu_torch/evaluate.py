@@ -18,9 +18,16 @@ the CPU the kernels' plain twins run.  The engine names are gnngls_tpu's.
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
 
-Each step of `evaluate` and `predict_regret` is a named span ("gnngls.*",
-utils/profiling.py lists the tree), which a profiler records and the
-benchmark reads.
+Two models guide the search: the edge-regret GAT (`RegretGNN`, through
+`predict_regret`: scaled regret per edge, placed into (n, n) matrices) and
+the residual gated GCN (`GatedGCN`, through `predict_edge_guide`: (n, n)
+guides from its edge probabilities, computed on the device from the
+distance matrices).  `evaluate` dispatches on the model's type; either
+model's matrices are the "regret_pred" guide.
+
+Each step of `evaluate`, `predict_regret` and `predict_edge_guide` is a
+named span ("gnngls.*", utils/profiling.py lists the tree), which a profiler
+records and the benchmark reads.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import datetime
 import pathlib
 import time
 import uuid
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,6 +44,7 @@ import torch
 from .core.graph import edge_vector_to_matrix
 from .data.dataset import TSPDataset
 from .data.generate import coords_to_distance_matrix, coords_to_distance_tensor
+from .models.gated_gcn import GatedGCN, edge_guide, knn_tags
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
 from .search import batched, gls_whole
 from .utils.profiling import annotate
@@ -78,8 +86,35 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
         return np.maximum(y, 0.0)
 
 
+@torch.no_grad()
+@annotate("gnngls.predict")
+def predict_edge_guide(model: GatedGCN, dataset: TSPDataset, Ds: torch.Tensor, *,
+                       batch_size: int = 64, device=None) -> np.ndarray:
+    """The gated GCN's (N, n, n) float32 guides, 1 - (p + p^T) / 2 with 0 on
+    the diagonal (`gated_gcn.edge_guide`), from the coordinates and the
+    (N, n, n) distance matrices Ds.  The k-NN tags are formed from Ds on
+    `device` and the forward runs `batch_size` instances at a time: its
+    BatchNorm's statistics are each batch's own."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    outs = []
+    with exact_f32_matmuls():
+        for s in range(0, len(dataset), batch_size):
+            with annotate("gnngls.predict.inputs"):
+                D = torch.as_tensor(Ds[s:s + batch_size], device=dev)
+                coords = torch.as_tensor(dataset.coords[s:s + batch_size], device=dev)
+                tags = knn_tags(D, model.cfg.num_neighbors)
+            with annotate("gnngls.predict.forward"):
+                logits = model(coords, D, tags)
+            with annotate("gnngls.predict.guide"):
+                guide = edge_guide(logits)
+            with annotate("gnngls.predict.fetch"):
+                outs.append(guide.cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
 @annotate("gnngls.evaluate")
-def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
+def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = None,
              guides: List[str] = ("regret_pred",),
              time_limit: Optional[float] = 10.0,
              n_iters: Optional[int] = None,
@@ -89,7 +124,8 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
              engine: str = "auto",
              device=None) -> dict:
     """Evaluate GLS, guided by the model's predictions when 'regret_pred' is
-    among `guides` (cycled per outer iteration).
+    among `guides` (cycled per outer iteration): the GAT's regret matrices,
+    or the gated GCN's guides.
 
     The budget is `n_iters` outer iterations when given, else `time_limit`
     seconds of wall clock for the whole batch (one deadline, as in
@@ -103,9 +139,11 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
     "pallas" without n_iters or with first_improvement raises ValueError.
 
     `timings` holds inference_s (predictions and their matrices), search_s
-    (the search's chunk stamps), total_s (the whole call), the peak device
-    memory and, from the per-move engine, search_rounds: the lock-step rounds
-    the batch ran (local search, perturbation); None from the kernel;
+    (the search's chunk stamps), total_s (the whole call), predict_batches
+    (the model's forwards as they ran, each one batch of `batch_size`
+    instances; 0 without a model), the peak device memory and, from the per-move engine,
+    search_rounds: the lock-step rounds the batch ran (local search,
+    perturbation); None from the kernel;
     d_host_copies: the whole distance tensors that crossed between host and
     device (1 where a "weight" guide brings D to the host, else 0).
     """
@@ -131,12 +169,21 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
 
     t0 = time.time()
     regret_mats = None
+    forwards = []  # one entry per call of the model, each one batch
     if "regret_pred" in guides:
         if model is None:
             raise ValueError("guide 'regret_pred' needs a model")
-        preds = predict_regret(model, dataset, batch_size=batch_size, device=dev)
-        with annotate("gnngls.evaluate.to_matrix"):
-            regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
+        counter = model.register_forward_pre_hook(lambda *_: forwards.append(1))
+        try:
+            if isinstance(model, GatedGCN):
+                regret_mats = predict_edge_guide(model, dataset, Ds, batch_size=batch_size,
+                                                 device=dev)
+            else:
+                preds = predict_regret(model, dataset, batch_size=batch_size, device=dev)
+                with annotate("gnngls.evaluate.to_matrix"):
+                    regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
+        finally:
+            counter.remove()
         init_guide = regret_mats
     else:
         init_guide = Ds
@@ -181,6 +228,7 @@ def evaluate(dataset: TSPDataset, *, model: Optional[RegretGNN] = None,
             "timings": {"inference_s": t1 - t0,
                         "search_s": result.chunk_times[-1] - result.chunk_times[0],
                         "total_s": time.time() - t_start,
+                        "predict_batches": len(forwards),
                         # torch.cuda.max_memory_allocated over the call; None on the CPU
                         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                               if dev.type == "cuda" else None),

@@ -14,12 +14,17 @@ NVTX ranges); there is no other switch.  Their names and nesting:
     gnngls.dataset.batch         TSPDataset.get_scaled_batch (also in predict)
     gnngls.evaluate              the whole evaluate() call
       gnngls.evaluate.distances  the distance matrices, built on the evaluate's device
-      gnngls.predict             predict_regret
+      gnngls.predict             predict_regret (the GAT)
         gnngls.dataset.batch     a batch's scaled features
         gnngls.predict.forward   the copy to the device and the model: enqueue
         gnngls.predict.fetch     the copy back: the host waits on the device
         gnngls.predict.unscale   inverse scaling, clamp at 0
       gnngls.evaluate.to_matrix  the edge vectors as (n, n) matrices
+      gnngls.predict             predict_edge_guide (the gated GCN), a batch:
+        gnngls.predict.inputs    coordinates up, k-NN tags and edge values from D
+        gnngls.predict.forward   the layers and the edge MLP: enqueue
+        gnngls.predict.guide     softmax, 1 - (p + p^T) / 2: enqueue
+        gnngls.predict.fetch     the copy back: the host waits on the device
       gnngls.construct           nearest neighbour, its copies in and back
       gnngls.evaluate.guide_stack
       gnngls.search              run_fixed_kernel / run_fixed / run_wall_clock
@@ -35,7 +40,9 @@ On the CPU the kernel's twin runs the per-move engine's iterations, so
 their spans nest in gnngls.search.kernel there.  No span opens inside a
 round of the per-move engine, the model's forward or a training step.
 
-Counter: the per-move engine counts on the host the lock-step rounds the
+Counters: evaluate's `timings["predict_batches"]`, the model's forwards
+(each one batch of `batch_size`, the gated GCN's BatchNorm batch).  The
+per-move engine counts on the host the lock-step rounds the
 batch ran, each followed by one host sync: `GLSState.rounds`,
 `BatchResult.rounds` and evaluate's `timings["search_rounds"]`, as (local
 search, perturbation), beside each instance's own rounds in `work`.

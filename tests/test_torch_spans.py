@@ -1,7 +1,9 @@
 """The program's spans and its lock-step round counter, on the CPU.
 
 `evaluate` runs under torch.profiler on the whole-search kernel's twin (a
-fixed n_iters) and on the per-move engine (a deadline), and the recorded
+fixed n_iters, guided by the GAT or by the gated GCN) and on the per-move
+engine (a deadline, read on a clock that advances a fixed tick a reading, so
+that it runs the same iterations however loaded the CPU), and the recorded
 "gnngls.*" regions must form utils/profiling.py's tree: the names, each
 one's parent, no torch operator left in `gnngls.evaluate`'s own time, no
 span inside a round of the per-move engine or the model.  The counter
@@ -20,7 +22,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from gnngls_tpu_torch import evaluate as tev
 from gnngls_tpu_torch.data import dataset as tds
+from gnngls_tpu_torch.models.gated_gcn import GatedGCN, GatedGCNConfig
 from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig
+from gnngls_tpu_torch.search import batched
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TSP10 = ROOT / "data" / "tsp10"
@@ -49,11 +53,31 @@ KERNEL = {"gnngls.search.upload": "gnngls.search", "gnngls.search.kernel": "gnng
           # the kernel's CPU twin runs the per-move engine's iterations
           "gnngls.search.iteration": "gnngls.search.kernel"}
 PER_MOVE = {"gnngls.search.iteration": "gnngls.search"}
+# the gated GCN's predict: its own four steps, and no edge vectors to place
+GCN = dict({k: v for k, v in TREE.items()
+            if k not in ("gnngls.dataset.batch", "gnngls.predict.unscale",
+                         "gnngls.evaluate.to_matrix")},
+           **{"gnngls.predict.inputs": "gnngls.predict",
+              "gnngls.predict.guide": "gnngls.predict"})
 ROUNDS = ("gnngls.search.perturb", "gnngls.search.ls")
+TICK = 0.125  # s a reading of the per-move engine's clock: 2 iterations in 0.3 s
 
 
-def _model():
+class TickClock:
+    """A clock that advances TICK at every reading, from a whole second."""
+
+    def __init__(self):
+        self.t = float(int(time.time()))
+
+    def time(self):
+        self.t += TICK
+        return self.t
+
+
+def _model(engine="kernel"):
     torch.manual_seed(0)
+    if engine == "gcn":
+        return GatedGCN(GatedGCNConfig(hidden_dim=8, num_layers=2, num_neighbors=3))
     return RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).eval()
 
 
@@ -74,20 +98,23 @@ def _spans(prof):
     return out
 
 
-def _profiled(k, **kw):
-    model = _model()
+def _profiled(k, engine, **kw):
+    model = _model(engine)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ds = _dataset(k)
         out = tev.evaluate(ds, model=model, perturbation_moves=3, device="cpu", **kw)
     return out, _spans(prof)
 
 
-@pytest.mark.parametrize("engine", ["kernel", "per_move"])
-def test_span_tree_and_rounds(engine):
-    kw = dict(n_iters=3) if engine == "kernel" else dict(time_limit=0.3)
-    out, spans = _profiled(3, **kw)
+@pytest.mark.parametrize("engine", ["kernel", "per_move", "gcn"])
+def test_span_tree_and_rounds(engine, monkeypatch):
+    kw = dict(time_limit=0.3) if engine == "per_move" else dict(n_iters=3)
+    if engine == "per_move":
+        monkeypatch.setattr(batched, "time", TickClock())
+    out, spans = _profiled(3, engine, **kw)
     res = out["result"]
-    want = dict(TREE, **(KERNEL if engine == "kernel" else PER_MOVE))
+    want = dict(GCN if engine == "gcn" else TREE, **(PER_MOVE if engine == "per_move"
+                                                     else KERNEL))
     gnngls = [(n, p) for n, p in spans if n.startswith("gnngls.")]
     assert {n for n, _ in gnngls} == set(want)
     for name, parent in gnngls:
@@ -98,15 +125,15 @@ def test_span_tree_and_rounds(engine):
     assert not [n for n, p in gnngls if p in ROUNDS + ("gnngls.predict.forward",)]
     iters = sum(n == "gnngls.search.iteration" for n, _ in gnngls)
     chunks = len(res.chunk_times) - 1
-    assert iters == (3 if engine == "kernel" else chunks)
+    assert iters == (chunks if engine == "per_move" else 3)
     assert sum(n == "gnngls.search.ls" for n, _ in gnngls) == iters
     assert sum(n == "gnngls.evaluate" for n, _ in gnngls) == 1
 
     rounds = out["timings"]["search_rounds"]
-    if engine == "kernel":
+    if engine != "per_move":
         assert rounds is None and res.rounds is None
-        again = tev.evaluate(_dataset(3), model=_model(), perturbation_moves=3, device="cpu",
-                             **kw)
+        again = tev.evaluate(_dataset(3), model=_model(engine), perturbation_moves=3,
+                             device="cpu", **kw)
     else:
         assert isinstance(rounds, tuple) and all(isinstance(r, int) for r in rounds)
         assert rounds == res.rounds

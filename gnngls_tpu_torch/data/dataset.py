@@ -6,18 +6,25 @@ and `split_dataset` carves the reference's shuffled train/test/val split
 (both as scripts/preprocess_dataset.py does).  `from_reference_dir` reads the reference's own
 format: a txt listing of pickled networkx graphs with `scalers.pkl` beside
 it (unpickling them needs networkx; this module does not import it).
-`from_arrays`, `edge_features` and `get_scaled_batch` are the spans
-"gnngls.dataset", "gnngls.dataset.features" and "gnngls.dataset.batch"
-(utils/profiling.py).
+
+A split made from coordinates alone (`from_arrays`, or `features=None`)
+builds its features, the edge weights, on their first read; until a caller
+overrides them, `features_are_edge_weights` says so, and a predictor may form
+them where its distance matrices already are (`scaled_edge_features`, the
+bits of `get_scaled_batch`'s).  `from_arrays`, `edge_features` and
+`get_scaled_batch` are the spans "gnngls.dataset", "gnngls.dataset.features"
+and "gnngls.dataset.batch" (utils/profiling.py).
 """
 
 from __future__ import annotations
 
+import functools
 import pathlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core.graph import build_topology, edge_index
 from ..core.scaler import MinMaxScaler, load_scalers
@@ -34,10 +41,50 @@ def edge_features(coords: np.ndarray) -> np.ndarray:
     return w[..., None].astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _edge_positions(n: int, device: torch.device) -> torch.Tensor:
+    """The flat positions u * n + v of K_n's edges (u, v), in the canonical
+    order, in a row-major n x n matrix, on `device`."""
+    e = build_topology(n).edges.astype(np.int64)
+    return torch.as_tensor(e[:, 0] * n + e[:, 1], device=device)
+
+
+def scaled_edge_features(D: torch.Tensor, scaler: MinMaxScaler) -> torch.Tensor:
+    """(B, n, n) f32 distance matrices -> (B, E, 1) f32 scaled features, on
+    D's device: the bits of `get_scaled_batch`'s "features" for a split whose
+    features are its edge weights.  The weights are gathered from D, then
+    scaled by the scaler's f32 scale_ and min_ as a multiply and then an add,
+    two roundings as NumPy's `transform` makes them (no fused multiply-add)."""
+    if np.shape(scaler.scale_) != (1,):
+        raise ValueError(f"edge weights are one feature; the scaler has {np.shape(scaler.scale_)}")
+    B, n = D.shape[0], D.shape[-1]
+    w = D.reshape(B, n * n).index_select(1, _edge_positions(n, D.device))
+    scale = float(scaler.scale_.astype(np.float32)[0])
+    shift = float(scaler.min_.astype(np.float32)[0])
+    return (w * scale).add_(shift)[..., None]
+
+
+class _Features:
+    """TSPDataset's `features` field: the array it was given, or, given None,
+    the coordinates' edge weights (`edge_features`), built on the first read
+    and kept.  A required field: it has no default."""
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            raise AttributeError("features")
+        if obj._features is None:
+            obj._features = edge_features(obj.coords)
+        return obj._features
+
+    def __set__(self, obj, value):
+        obj._features = value
+        obj._edge_weights = value is None
+
+
 @dataclass
 class TSPDataset:
     coords: np.ndarray  # (N, n, 2)
-    features: np.ndarray  # (N, E, F) unscaled
+    features: np.ndarray = _Features()  # (N, E, F) unscaled; None: the edge weights
     regret: np.ndarray  # (N, E) unscaled
     in_solution: np.ndarray  # (N, E) bool
     opt_cost: np.ndarray  # (N,)
@@ -50,6 +97,12 @@ class TSPDataset:
     @property
     def n_nodes(self) -> int:
         return self.coords.shape[1]
+
+    @property
+    def features_are_edge_weights(self) -> bool:
+        """The features are the coordinates' edge weights, built here (given
+        as None) and not overridden since."""
+        return self._edge_weights
 
     @property
     def feat_dim(self) -> int:
@@ -91,8 +144,7 @@ class TSPDataset:
         """From a dataset dict (data/generate.py's arrays, with "regret");
         `indices` selects rows."""
         idx = np.arange(data["coords"].shape[0]) if indices is None else np.asarray(indices)
-        coords = data["coords"][idx]
-        return cls(coords=coords, features=edge_features(coords),
+        return cls(coords=data["coords"][idx], features=None,
                    regret=np.asarray(data["regret"])[idx],
                    in_solution=np.asarray(data["in_solution"])[idx],
                    opt_cost=np.asarray(data["opt_cost"])[idx],

@@ -12,8 +12,9 @@ scripts/test.py).
 Everything runs on `device`, "cuda" unless the caller asks for "cpu"; without
 a card and without device="cpu" the entry points raise.  `evaluate` builds
 the distance matrices there, the bits of `coords_to_distance_matrix`, and
-keeps them there for the construction, the search and the tour costs.  On
-the CPU the kernels' plain twins run.  The engine names are gnngls_tpu's.
+keeps them there for the GAT's input features, the construction, the search
+and the tour costs.  On the CPU the kernels' plain twins run.  The engine
+names are gnngls_tpu's.
 "auto" takes the whole-search engine wherever it can run (a fixed budget,
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from .core.graph import edge_vector_to_matrix
-from .data.dataset import TSPDataset
+from .data.dataset import TSPDataset, scaled_edge_features
 from .data.generate import coords_to_distance_matrix, coords_to_distance_tensor
 from .models.gated_gcn import GatedGCN, edge_guide, knn_tags
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
@@ -66,20 +67,40 @@ def resolve_device(device=None) -> torch.device:
 @torch.no_grad()
 @annotate("gnngls.predict")
 def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 64,
-                   device=None, gat_impl: str = "auto") -> np.ndarray:
+                   device=None, gat_impl: str = "auto", distances=None,
+                   counts: Optional[dict] = None) -> np.ndarray:
     """Unscaled, non-negative per-edge regret predictions, (N, E).  gat_impl
-    names the GATConv route (`models.regret_gat.gat_conv_for`)."""
+    names the GATConv route (`models.regret_gat.gat_conv_for`).
+
+    Where the dataset's features are its edge weights and no column is
+    dropped, each batch's scaled features are formed on `device` from the
+    (N, n, n) distance matrices `distances` (a tensor there, as `evaluate`
+    holds them; built there a batch at a time when None), with the bits that
+    `get_scaled_batch` gives; else the host scales them and they are copied
+    up.  `counts`, when given, gets "host_feature_batches": the batches whose
+    features came from the host."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    on_device = dataset.features_are_edge_weights and not dataset.feat_drop_idx
+    host_batches = 0
     outs = []
     with exact_f32_matmuls():
         for s in range(0, len(dataset), batch_size):
             idx = np.arange(s, min(s + batch_size, len(dataset)))
-            feats = dataset.get_scaled_batch(idx)["features"]
+            if on_device:
+                with annotate("gnngls.predict.features"):
+                    D = (coords_to_distance_tensor(dataset.coords[idx], dev) if distances is None
+                         else distances[s:s + len(idx)])
+                    x = scaled_edge_features(D, dataset.scalers["features"])
+            else:
+                x = dataset.get_scaled_batch(idx)["features"]
+                host_batches += 1
             with annotate("gnngls.predict.forward"):
-                y = model(torch.as_tensor(feats, device=dev), gat_impl=gat_impl)[..., 0]
+                y = model(torch.as_tensor(x, device=dev), gat_impl=gat_impl)[..., 0]
             with annotate("gnngls.predict.fetch"):
                 outs.append(y.cpu().numpy())
+    if counts is not None:
+        counts["host_feature_batches"] = host_batches
     with annotate("gnngls.predict.unscale"):
         y_scaled = np.concatenate(outs, axis=0)
         y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
@@ -145,7 +166,11 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
     search_rounds: the lock-step rounds the batch ran (local search,
     perturbation); None from the kernel;
     d_host_copies: the whole distance tensors that crossed between host and
-    device (1 where a "weight" guide brings D to the host, else 0).
+    device (1 where a "weight" guide brings D to the host, else 0);
+    host_feature_batches: the GAT's batches whose features the host scaled
+    and copied up (0 where `predict_regret` forms them from D on the device,
+    `predict_batches` for a dataset with features of its own or dropped
+    columns, 0 for the gated GCN and without a model).
     """
     t_start = time.time()
     if engine not in ENGINES:
@@ -170,6 +195,7 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
     t0 = time.time()
     regret_mats = None
     forwards = []  # one entry per call of the model, each one batch
+    counts = {"host_feature_batches": 0}
     if "regret_pred" in guides:
         if model is None:
             raise ValueError("guide 'regret_pred' needs a model")
@@ -179,7 +205,8 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
                 regret_mats = predict_edge_guide(model, dataset, Ds, batch_size=batch_size,
                                                  device=dev)
             else:
-                preds = predict_regret(model, dataset, batch_size=batch_size, device=dev)
+                preds = predict_regret(model, dataset, batch_size=batch_size, device=dev,
+                                       distances=Ds, counts=counts)
                 with annotate("gnngls.evaluate.to_matrix"):
                     regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
         finally:
@@ -233,7 +260,8 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
                         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                               if dev.type == "cuda" else None),
                         "search_rounds": result.rounds,
-                        "d_host_copies": int(D_host is not None)},
+                        "d_host_copies": int(D_host is not None),
+                        "host_feature_batches": counts["host_feature_batches"]},
             "result": result,
         }
 

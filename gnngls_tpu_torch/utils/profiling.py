@@ -9,13 +9,17 @@ The program's own spans are `annotate` regions, recorded only while a
 profiler listens (torch.profiler records the regions, an Nsight tool the
 NVTX ranges); there is no other switch.  Their names and nesting:
 
-    gnngls.dataset               TSPDataset.from_arrays
-      gnngls.dataset.features    edge_features (its own distance matrices)
+    gnngls.dataset               TSPDataset.from_arrays (no features built)
+    gnngls.dataset.features      edge_features (its own distance matrices), on
+                                 the first read of a split's lazy features
     gnngls.dataset.batch         TSPDataset.get_scaled_batch (also in predict)
     gnngls.evaluate              the whole evaluate() call
       gnngls.evaluate.distances  the distance matrices, built on the evaluate's device
       gnngls.predict             predict_regret (the GAT)
-        gnngls.dataset.batch     a batch's scaled features
+        gnngls.predict.features  a batch's edge weights gathered from D and
+                                 scaled on the device: enqueue
+        gnngls.dataset.batch     or, for features of a dataset's own or
+                                 dropped columns, a batch scaled on the host
         gnngls.predict.forward   the copy to the device and the model: enqueue
         gnngls.predict.fetch     the copy back: the host waits on the device
         gnngls.predict.unscale   inverse scaling, clamp at 0
@@ -41,7 +45,9 @@ their spans nest in gnngls.search.kernel there.  No span opens inside a
 round of the per-move engine, the model's forward or a training step.
 
 Counters: evaluate's `timings["predict_batches"]`, the model's forwards
-(each one batch of `batch_size`, the gated GCN's BatchNorm batch).  The
+(each one batch of `batch_size`, the gated GCN's BatchNorm batch), and
+`timings["host_feature_batches"]`, those of the GAT's batches whose features
+came from the host (`gnngls.dataset.batch` under `gnngls.predict`).  The
 per-move engine counts on the host the lock-step rounds the
 batch ran, each followed by one host sync: `GLSState.rounds`,
 `BatchResult.rounds` and evaluate's `timings["search_rounds"]`, as (local

@@ -5,13 +5,16 @@ fixed n_iters, guided by the GAT or by the gated GCN) and on the per-move
 engine (a deadline, read on a clock that advances a fixed tick a reading, so
 that it runs the same iterations however loaded the CPU), and the recorded
 "gnngls.*" regions must form utils/profiling.py's tree: the names, each
-one's parent, no torch operator left in `gnngls.evaluate`'s own time, no
-span inside a round of the per-move engine or the model.  The counter
+one's parent (the GAT's features formed on the device, or, for a dataset
+given features of its own, scaled on the host), no torch operator left in
+`gnngls.evaluate`'s own time, no span inside a round of the per-move engine
+or the model.  The counter
 `timings["search_rounds"]` is set on the per-move engine only, bounds each
 instance's `work`, and equals it for a batch of one.  The profiler changes
 no tour or cost.
 """
 
+import dataclasses
 import pathlib
 import time
 
@@ -32,11 +35,10 @@ TSP10 = ROOT / "data" / "tsp10"
 # span -> its parent span ("" for none), on both engines
 TREE = {
     "gnngls.dataset": "",
-    "gnngls.dataset.features": "gnngls.dataset",
     "gnngls.evaluate": "",
     "gnngls.evaluate.distances": "gnngls.evaluate",
     "gnngls.predict": "gnngls.evaluate",
-    "gnngls.dataset.batch": "gnngls.predict",
+    "gnngls.predict.features": "gnngls.predict",
     "gnngls.predict.forward": "gnngls.predict",
     "gnngls.predict.fetch": "gnngls.predict",
     "gnngls.predict.unscale": "gnngls.predict",
@@ -53,9 +55,13 @@ KERNEL = {"gnngls.search.upload": "gnngls.search", "gnngls.search.kernel": "gnng
           # the kernel's CPU twin runs the per-move engine's iterations
           "gnngls.search.iteration": "gnngls.search.kernel"}
 PER_MOVE = {"gnngls.search.iteration": "gnngls.search"}
+# features of the dataset's own (here its edge weights, read before evaluate):
+# built on the host at that read and scaled there a batch at a time
+HOST = dict({k: v for k, v in TREE.items() if k != "gnngls.predict.features"},
+            **{"gnngls.dataset.features": "", "gnngls.dataset.batch": "gnngls.predict"})
 # the gated GCN's predict: its own four steps, and no edge vectors to place
 GCN = dict({k: v for k, v in TREE.items()
-            if k not in ("gnngls.dataset.batch", "gnngls.predict.unscale",
+            if k not in ("gnngls.predict.features", "gnngls.predict.unscale",
                          "gnngls.evaluate.to_matrix")},
            **{"gnngls.predict.inputs": "gnngls.predict",
               "gnngls.predict.guide": "gnngls.predict"})
@@ -102,19 +108,21 @@ def _profiled(k, engine, **kw):
     model = _model(engine)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ds = _dataset(k)
+        if engine == "host_features":
+            ds = dataclasses.replace(ds, features=ds.features)
         out = tev.evaluate(ds, model=model, perturbation_moves=3, device="cpu", **kw)
     return out, _spans(prof)
 
 
-@pytest.mark.parametrize("engine", ["kernel", "per_move", "gcn"])
+@pytest.mark.parametrize("engine", ["kernel", "per_move", "gcn", "host_features"])
 def test_span_tree_and_rounds(engine, monkeypatch):
     kw = dict(time_limit=0.3) if engine == "per_move" else dict(n_iters=3)
     if engine == "per_move":
         monkeypatch.setattr(batched, "time", TickClock())
     out, spans = _profiled(3, engine, **kw)
     res = out["result"]
-    want = dict(GCN if engine == "gcn" else TREE, **(PER_MOVE if engine == "per_move"
-                                                     else KERNEL))
+    tree = {"gcn": GCN, "host_features": HOST}.get(engine, TREE)
+    want = dict(tree, **(PER_MOVE if engine == "per_move" else KERNEL))
     gnngls = [(n, p) for n, p in spans if n.startswith("gnngls.")]
     assert {n for n, _ in gnngls} == set(want)
     for name, parent in gnngls:

@@ -38,7 +38,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from ..data import generate as gen, labels as lb, solvers
-    from ..evaluate import resolve_device
+    from ..core.device import resolve_device
 
     device = resolve_device(args.device)
     if args.dir.exists() and not args.resume:

@@ -47,7 +47,7 @@ def main(argv=None):
 
     from ..core.scaler import load_scalers
     from ..data import dataset as ds
-    from ..evaluate import resolve_device
+    from ..core.device import resolve_device
     from ..train import loop as tl
 
     device = resolve_device(args.device)

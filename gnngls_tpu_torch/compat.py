@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from .core.device import resolve_device
 from .utils import is_equivalent_tour, is_valid_tour  # noqa: F401  (the same API)
 
 
@@ -113,7 +114,6 @@ def set_labels(G) -> None:
 
 def nearest_neighbor(G, depot, weight: str = "weight", device=None):
     """Greedy tour over an edge attribute, on `device`."""
-    from .evaluate import resolve_device
     from .search.construct import nearest_neighbor_batch
 
     W = torch.as_tensor(_weight_matrix(G, weight), dtype=torch.float32,

@@ -11,6 +11,7 @@ import functools
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class LineGraphTopology(NamedTuple):
@@ -91,3 +92,22 @@ def edge_vector_to_matrix(x: np.ndarray, n: int, diag=0.0) -> np.ndarray:
     M[..., us, vs] = x
     M[..., vs, us] = x
     return M
+
+
+@functools.lru_cache(maxsize=32)
+def edge_positions(n: int, device: torch.device, transpose: bool = False) -> torch.Tensor:
+    """The flat positions u * n + v of K_n's edges (u, v), in the canonical
+    order, in a row-major n x n matrix, on `device`; v * n + u with
+    `transpose`."""
+    u, v = build_topology(n).edges.astype(np.int64).T[::-1 if transpose else 1]
+    return torch.as_tensor(u * n + v, device=device)
+
+
+def edge_tensor_to_matrix(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Scatter an (..., E) per-edge tensor to symmetric (..., n, n) matrices
+    with 0 on the diagonal, on x's device: the values `edge_vector_to_matrix`
+    places."""
+    M = x.new_zeros(x.shape[:-1] + (n * n,))
+    for transpose in (False, True):
+        M.index_copy_(-1, edge_positions(n, x.device, transpose), x)
+    return M.unflatten(-1, (n, n))

@@ -18,7 +18,6 @@ and "gnngls.dataset.batch" (utils/profiling.py).
 
 from __future__ import annotations
 
-import functools
 import pathlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -26,7 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.graph import build_topology, edge_index
+from ..core.graph import build_topology, edge_index, edge_positions
 from ..core.scaler import MinMaxScaler, load_scalers
 from ..utils.profiling import annotate
 from .generate import coords_to_distance_matrix, load_dataset
@@ -41,14 +40,6 @@ def edge_features(coords: np.ndarray) -> np.ndarray:
     return w[..., None].astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
-def _edge_positions(n: int, device: torch.device) -> torch.Tensor:
-    """The flat positions u * n + v of K_n's edges (u, v), in the canonical
-    order, in a row-major n x n matrix, on `device`."""
-    e = build_topology(n).edges.astype(np.int64)
-    return torch.as_tensor(e[:, 0] * n + e[:, 1], device=device)
-
-
 def scaled_edge_features(D: torch.Tensor, scaler: MinMaxScaler) -> torch.Tensor:
     """(B, n, n) f32 distance matrices -> (B, E, 1) f32 scaled features, on
     D's device: the bits of `get_scaled_batch`'s "features" for a split whose
@@ -58,7 +49,7 @@ def scaled_edge_features(D: torch.Tensor, scaler: MinMaxScaler) -> torch.Tensor:
     if np.shape(scaler.scale_) != (1,):
         raise ValueError(f"edge weights are one feature; the scaler has {np.shape(scaler.scale_)}")
     B, n = D.shape[0], D.shape[-1]
-    w = D.reshape(B, n * n).index_select(1, _edge_positions(n, D.device))
+    w = D.reshape(B, n * n).index_select(1, edge_positions(n, D.device))
     scale = float(scaler.scale_.astype(np.float32)[0])
     shift = float(scaler.min_.astype(np.float32)[0])
     return (w * scale).add_(shift)[..., None]

@@ -38,6 +38,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 HELD_KARP_MAX_N = 16
 MAX_D2_BYTES = 1 << 31  # the (n, n) distance matrices of one kernel launch
 
@@ -111,15 +113,14 @@ def gls_oracle(Ds: np.ndarray, *, n_iters: int = 25, perturbation_moves: int = 3
     The instances go to the card MAX_D2_BYTES of distance matrices at a time
     (each searched alone, so the cut moves no number).  `seed` is accepted
     and unused, as in gnngls_tpu: the search draws nothing."""
-    from ..evaluate import resolve_device
     from ..search import batched
 
     dev = resolve_device(device)
     Ds = np.ascontiguousarray(Ds, dtype=np.float32)
     tours, costs = [], []
     for s, e in _launches(len(Ds), Ds.shape[1]):
-        init = batched.nearest_neighbor_batch(torch.as_tensor(Ds[s:e], device=dev))
-        res = batched.run_fixed_kernel(Ds[s:e], Ds[s:e, None], init.cpu().numpy(),
+        D = torch.as_tensor(Ds[s:e], device=dev)  # the launch's only upload
+        res = batched.run_fixed_kernel(D, D[:, None], batched.nearest_neighbor_batch(D),
                                        n_iters=n_iters, perturbation_moves=perturbation_moves,
                                        device=dev)
         tours.append(res.best_tours.astype(np.int32))
@@ -168,7 +169,6 @@ def cold_lanes(D: np.ndarray, edges: np.ndarray, *, device=None):
     s..e-1 (edges[s:e]) on `device`.  D2 is the big-M reduction (M = sum(D)
     + 1, built in f64 and rounded to f32), init the nearest-neighbour tour on
     D2, k = 0.1 * (init's f32 cost on D) / n."""
-    from ..evaluate import resolve_device
     from ..search import construct
     from ..search import moves as mv
     from ..search.local_search import penalty_scale
@@ -251,7 +251,6 @@ def warm_lanes(Ds: np.ndarray, edges: np.ndarray, best_tours: np.ndarray, *,
     and (v, u), M = n * max(D) + 1 rounded to f32, in f32; init the best-known
     tour with the edge spliced in; k = 0.1 * (the best-known tour's f32 cost
     on D) / n."""
-    from ..evaluate import resolve_device
     from ..search import moves as mv
     from ..search.local_search import penalty_scale
 

@@ -12,9 +12,9 @@ scripts/test.py).
 Everything runs on `device`, "cuda" unless the caller asks for "cpu"; without
 a card and without device="cpu" the entry points raise.  `evaluate` builds
 the distance matrices there, the bits of `coords_to_distance_matrix`, and
-keeps them there for the GAT's input features, the construction, the search
-and the tour costs.  On the CPU the kernels' plain twins run.  The engine
-names are gnngls_tpu's.
+keeps them there, with the guides and the initial tours, from the features
+to the tour costs; only what `evaluate` returns comes back.  On the CPU the
+kernels' plain twins run.  The engine names are gnngls_tpu's.
 "auto" takes the whole-search engine wherever it can run (a fixed budget,
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
@@ -42,9 +42,10 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .core.graph import edge_vector_to_matrix
+from .core.device import resolve_device
+from .core.graph import edge_tensor_to_matrix
 from .data.dataset import TSPDataset, scaled_edge_features
-from .data.generate import coords_to_distance_matrix, coords_to_distance_tensor
+from .data.generate import coords_to_distance_tensor
 from .models.gated_gcn import GatedGCN, edge_guide, knn_tags
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
 from .search import batched, gls_whole
@@ -53,22 +54,16 @@ from .utils.profiling import annotate
 ENGINES = ("auto", "pallas", "xla")
 
 
-def resolve_device(device=None) -> torch.device:
-    """"cuda" by default; raise when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to "
-                           "run the plain PyTorch twins on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A large result as a NumPy array, fetched into page-locked memory from
+    the card: into fresh pageable memory it takes several times as long."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda).copy_(t).numpy()
 
 
 @torch.no_grad()
 @annotate("gnngls.predict")
 def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 64,
-                   device=None, gat_impl: str = "auto", distances=None,
-                   counts: Optional[dict] = None) -> np.ndarray:
+                   device=None, gat_impl: str = "auto", distances=None) -> np.ndarray:
     """Unscaled, non-negative per-edge regret predictions, (N, E).  gat_impl
     names the GATConv route (`models.regret_gat.gat_conv_for`).
 
@@ -77,12 +72,10 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
     (N, n, n) distance matrices `distances` (a tensor there, as `evaluate`
     holds them; built there a batch at a time when None), with the bits that
     `get_scaled_batch` gives; else the host scales them and they are copied
-    up.  `counts`, when given, gets "host_feature_batches": the batches whose
-    features came from the host."""
+    up."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     on_device = dataset.features_are_edge_weights and not dataset.feat_drop_idx
-    host_batches = 0
     outs = []
     with exact_f32_matmuls():
         for s in range(0, len(dataset), batch_size):
@@ -94,13 +87,10 @@ def predict_regret(model: RegretGNN, dataset: TSPDataset, *, batch_size: int = 6
                     x = scaled_edge_features(D, dataset.scalers["features"])
             else:
                 x = dataset.get_scaled_batch(idx)["features"]
-                host_batches += 1
             with annotate("gnngls.predict.forward"):
                 y = model(torch.as_tensor(x, device=dev), gat_impl=gat_impl)[..., 0]
             with annotate("gnngls.predict.fetch"):
                 outs.append(y.cpu().numpy())
-    if counts is not None:
-        counts["host_feature_batches"] = host_batches
     with annotate("gnngls.predict.unscale"):
         y_scaled = np.concatenate(outs, axis=0)
         y = dataset.scalers["regret"].inverse_transform(y_scaled[..., None])[..., 0]
@@ -164,13 +154,7 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
     (the model's forwards as they ran, each one batch of `batch_size`
     instances; 0 without a model), the peak device memory and, from the per-move engine,
     search_rounds: the lock-step rounds the batch ran (local search,
-    perturbation); None from the kernel;
-    d_host_copies: the whole distance tensors that crossed between host and
-    device (1 where a "weight" guide brings D to the host, else 0);
-    host_feature_batches: the GAT's batches whose features the host scaled
-    and copied up (0 where `predict_regret` forms them from D on the device,
-    `predict_batches` for a dataset with features of its own or dropped
-    columns, 0 for the gated GCN and without a model).
+    perturbation); None from the kernel.
     """
     t_start = time.time()
     if engine not in ENGINES:
@@ -193,45 +177,40 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
         torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.time()
-    regret_mats = None
+    guide_mats = None
     forwards = []  # one entry per call of the model, each one batch
-    counts = {"host_feature_batches": 0}
     if "regret_pred" in guides:
         if model is None:
             raise ValueError("guide 'regret_pred' needs a model")
         counter = model.register_forward_pre_hook(lambda *_: forwards.append(1))
         try:
             if isinstance(model, GatedGCN):
-                regret_mats = predict_edge_guide(model, dataset, Ds, batch_size=batch_size,
-                                                 device=dev)
+                guide_mats = predict_edge_guide(model, dataset, Ds, batch_size=batch_size,
+                                                device=dev)
             else:
                 preds = predict_regret(model, dataset, batch_size=batch_size, device=dev,
-                                       distances=Ds, counts=counts)
+                                       distances=Ds)
                 with annotate("gnngls.evaluate.to_matrix"):
-                    regret_mats = edge_vector_to_matrix(preds.astype(np.float32), n)
+                    guide_mats = edge_tensor_to_matrix(
+                        torch.as_tensor(preds, dtype=torch.float32, device=dev), n)
         finally:
             counter.remove()
-        init_guide = regret_mats
-    else:
-        init_guide = Ds
     t1 = time.time()
 
     with annotate("gnngls.construct"):
-        init_t = batched.nearest_neighbor_batch(torch.as_tensor(init_guide, device=dev))
-        init_tours = init_t.cpu().numpy()
+        if guide_mats is not None:  # the gated GCN's guides come up here, once
+            guide_mats = torch.as_tensor(guide_mats, device=dev)
+        init_t = batched.nearest_neighbor_batch(Ds if guide_mats is None else guide_mats)
     with annotate("gnngls.evaluate.guide_stack"):
-        # the guide stack stays on the host; only a "weight" guide fetches D
-        D_host = Ds.cpu().numpy() if "weight" in guides else None
-        guide_stack = batched.make_guide_stack(D_host, guides, regret_mats)
+        guide_stack = batched.make_guide_stack(Ds, guides, guide_mats)
     search = dict(perturbation_moves=perturbation_moves, device=dev)
     if use_kernel:
-        result = batched.run_fixed_kernel(Ds, guide_stack, init_tours, n_iters=n_iters,
-                                          **search)
+        result = batched.run_fixed_kernel(Ds, guide_stack, init_t, n_iters=n_iters, **search)
     elif n_iters is not None:
-        result = batched.run_fixed(Ds, guide_stack, init_tours, n_iters=n_iters,
+        result = batched.run_fixed(Ds, guide_stack, init_t, n_iters=n_iters,
                                    first_improvement=first_improvement, **search)
     else:
-        result = batched.run_wall_clock(Ds, guide_stack, init_tours, time_limit_s=time_limit,
+        result = batched.run_wall_clock(Ds, guide_stack, init_t, time_limit_s=time_limit,
                                         first_improvement=first_improvement, **search)
 
     with annotate("gnngls.evaluate.finish"):
@@ -248,8 +227,8 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
             "engine": "pallas" if use_kernel else "xla",  # the engine that ran
             "device": str(dev),
             "init_costs": init_costs,
-            "init_tours": init_tours,
-            "guide_stack": guide_stack,
+            "init_tours": init_t.cpu().numpy(),
+            "guide_stack": _to_host(guide_stack),
             "opt_costs": opt,
             "moves": result.chunk_moves[:, -1],
             "timings": {"inference_s": t1 - t0,
@@ -259,9 +238,7 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
                         # torch.cuda.max_memory_allocated over the call; None on the CPU
                         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                               if dev.type == "cuda" else None),
-                        "search_rounds": result.rounds,
-                        "d_host_copies": int(D_host is not None),
-                        "host_feature_batches": counts["host_feature_batches"]},
+                        "search_rounds": result.rounds},
             "result": result,
         }
 
@@ -329,11 +306,11 @@ def search_on_predictions(preds: np.ndarray, coords: np.ndarray, *, n_iters: int
     Returns the search's result and its seconds (the kernel's synchronised
     window)."""
     dev = resolve_device(device)
-    R = edge_vector_to_matrix(preds.astype(np.float32), coords.shape[1])
-    inits = batched.nearest_neighbor_batch(torch.as_tensor(R, device=dev)).cpu().numpy()
-    res = batched.run_fixed_kernel(coords_to_distance_matrix(coords), R[:, None], inits,
-                                   n_iters=n_iters, perturbation_moves=perturbation_moves,
-                                   device=dev)
+    R = edge_tensor_to_matrix(torch.as_tensor(preds, dtype=torch.float32, device=dev),
+                              coords.shape[1])
+    res = batched.run_fixed_kernel(coords_to_distance_tensor(coords, dev), R[:, None],
+                                   batched.nearest_neighbor_batch(R), n_iters=n_iters,
+                                   perturbation_moves=perturbation_moves, device=dev)
     return res, res.chunk_times[1] - res.chunk_times[0]
 
 

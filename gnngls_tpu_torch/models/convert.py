@@ -16,6 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 _LAYER_KEY = re.compile(r"^(params|bn_state)::layers/(\d+)/(.+)$")
 _BN_STATE_NAME = re.compile(r"^layers\.\d+\.bn[12]\.(mean|var)$")
 
@@ -55,8 +57,7 @@ def state_from_jax_numpy(blobs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor
 
 def load_model(path, cfg, device=None):
     """A `RegretGNN` with the weights of a gnngls_tpu npz checkpoint, on
-    `device`: "cuda" unless the caller asks for "cpu" (`evaluate.resolve_device`)."""
-    from ..evaluate import resolve_device
+    `device`: "cuda" unless the caller asks for "cpu" (`core.device.resolve_device`)."""
     from ..train.checkpoint import load_checkpoint
     from .regret_gat import RegretGNN
 

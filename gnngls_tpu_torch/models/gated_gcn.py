@@ -46,6 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class GatedGCNConfig:
@@ -179,9 +181,7 @@ def edge_guide(logits: torch.Tensor) -> torch.Tensor:
 def load_model(path, cfg: GatedGCNConfig, device=None) -> GatedGCN:
     """A `GatedGCN` with the weights of an npz of arrays under its state-dict
     names (a path or a file object), every name required, on `device`:
-    "cuda" unless the caller asks for "cpu" (`evaluate.resolve_device`)."""
-    from ..evaluate import resolve_device
-
+    "cuda" unless the caller asks for "cpu" (`core.device.resolve_device`)."""
     device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         state = {k: torch.from_numpy(np.array(z[k], np.float32)) for k in z.files}

@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .convert import port_name, state_from_jax_numpy
 
 
@@ -66,8 +67,7 @@ def _depth(sd: Dict) -> int:
 
 def model_from_state_dict(sd: Dict, cfg, device=None):
     """A `RegretGNN` with the weights of a reference model state dict, on
-    `device`: "cuda" unless the caller asks for "cpu" (`evaluate.resolve_device`)."""
-    from ..evaluate import resolve_device
+    `device`: "cuda" unless the caller asks for "cpu" (`core.device.resolve_device`)."""
     from .regret_gat import RegretGNN
 
     device = resolve_device(device)

@@ -27,6 +27,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..utils.profiling import annotate
 from . import local_search as ls
 from .construct import nearest_neighbor_batch  # noqa: F401  (public API)
@@ -49,12 +50,6 @@ class BatchResult(NamedTuple):
     # per-move engine: the lock-step rounds the batch ran (local search,
     # perturbation), over the init and every chunk; None from the kernel
     rounds: Optional[Tuple[int, int]] = None
-
-
-def _device(device) -> torch.device:
-    from ..evaluate import resolve_device
-
-    return resolve_device(device)
 
 
 def _sync(dev: torch.device) -> None:
@@ -93,7 +88,7 @@ def batch_init(Ds, guide_stack, init_tours, trace_cap: int = 4096,
     """The initial local search of every instance.  Ds (B, n, n),
     guide_stack (B, G, n, n), init_tours (B, n+1); arrays or tensors, run on
     `device` (cuda unless "cpu" is asked for)."""
-    D_t, _, T_t = _tensors(_device(device), Ds, guide_stack, init_tours)
+    D_t, _, T_t = _tensors(resolve_device(device), Ds, guide_stack, init_tours)
     return ls.gls_init(D_t, T_t, trace_cap=trace_cap, first_improvement=first_improvement)
 
 
@@ -130,7 +125,7 @@ def run_fixed(Ds, guide_stack, init_tours, *, n_iters: int,
               first_improvement: bool = False, device=None) -> BatchResult:
     """Fixed-budget GLS on the per-move engine: one init and one chunk of
     n_iters, stamped before the init, after it and after the chunk."""
-    dev = _device(device)
+    dev = resolve_device(device)
     D_t, G_t, T_t = _tensors(dev, Ds, guide_stack, init_tours)
     t0 = time.time()
     state = batch_init(D_t, G_t, T_t, trace_cap, first_improvement, device=dev)
@@ -155,7 +150,7 @@ def run_wall_clock(Ds, guide_stack, init_tours, *, time_limit_s: float,
     set before the initial local search; the first boundary is stamped after
     it, then one after every chunk until a boundary lies at or past the
     deadline (kept in the result as `deadline`)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     D_t, G_t, T_t = _tensors(dev, Ds, guide_stack, init_tours)
     deadline = time.time() + time_limit_s
     state = batch_init(D_t, G_t, T_t, trace_cap, first_improvement, device=dev)
@@ -171,19 +166,20 @@ def run_wall_clock(Ds, guide_stack, init_tours, *, time_limit_s: float,
     return _per_move_result(state, times, moves)._replace(deadline=deadline)
 
 
-def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[np.ndarray]):
-    """Guide matrices by name, (B, G, n, n): 'weight' -> D, 'regret_pred'."""
+def make_guide_stack(Ds, guides: List[str], regret_pred: Optional[torch.Tensor]):
+    """Guide matrices by name, (B, G, n, n) tensors on their device: 'weight'
+    -> D, 'regret_pred'.  One guide is a view of its matrices, not a copy."""
     mats = []
     for g in guides:
         if g == "weight":
-            mats.append(np.asarray(Ds))
+            mats.append(torch.as_tensor(Ds))
         elif g == "regret_pred":
             if regret_pred is None:
                 raise ValueError("guide 'regret_pred' needs predictions")
-            mats.append(np.asarray(regret_pred))
+            mats.append(torch.as_tensor(regret_pred))
         else:
             raise ValueError(f"unknown guide {g!r}")
-    return np.stack(mats, axis=1)
+    return mats[0][:, None] if len(mats) == 1 else torch.stack(mats, dim=1)
 
 
 @annotate("gnngls.search")
@@ -191,10 +187,10 @@ def run_fixed_kernel(Ds, guide_stack, init_tours, *, n_iters: int,
                      perturbation_moves: int = 20, k=None, device=None) -> BatchResult:
     """Fixed-budget GLS for the whole batch in one `gls_whole` call, on
     `device` (cuda unless "cpu" is asked for).  Ds, guide_stack and
-    init_tours are arrays or tensors: a tensor on `device` is kept, an
-    array is copied there.  k: None or (B,) penalty scales (`gls_whole`)."""
+    init_tours are arrays or tensors: a tensor there in the kernel's dtype is
+    used as it is, else copied.  k: None or (B,) penalty scales (`gls_whole`)."""
     with annotate("gnngls.search.upload"):
-        dev = _device(device)
+        dev = resolve_device(device)
         D_t = _on(Ds, dev, torch.float32).contiguous()
         G_t = _on(guide_stack, dev, torch.float32).contiguous()
         T_t = _on(init_tours, dev, torch.int32).contiguous()

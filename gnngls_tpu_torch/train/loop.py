@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import TSPDataset
-from ..evaluate import resolve_device
+from ..core.device import resolve_device
 from ..models import regret_gat as M
 from . import checkpoint as ckpt
 from .step import eval_step, make_optimizer, set_lr, train_step

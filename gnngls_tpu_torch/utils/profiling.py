@@ -23,31 +23,29 @@ NVTX ranges); there is no other switch.  Their names and nesting:
         gnngls.predict.forward   the copy to the device and the model: enqueue
         gnngls.predict.fetch     the copy back: the host waits on the device
         gnngls.predict.unscale   inverse scaling, clamp at 0
-      gnngls.evaluate.to_matrix  the edge vectors as (n, n) matrices
+      gnngls.evaluate.to_matrix  the edge vectors up, placed into (n, n) matrices there
       gnngls.predict             predict_edge_guide (the gated GCN), a batch:
         gnngls.predict.inputs    coordinates up, k-NN tags and edge values from D
         gnngls.predict.forward   the layers and the edge MLP: enqueue
         gnngls.predict.guide     softmax, 1 - (p + p^T) / 2: enqueue
         gnngls.predict.fetch     the copy back: the host waits on the device
-      gnngls.construct           nearest neighbour, its copies in and back
-      gnngls.evaluate.guide_stack
+      gnngls.construct           nearest neighbour (the gated GCN's guides go up here)
+      gnngls.evaluate.guide_stack  the guides stacked on the device
       gnngls.search              run_fixed_kernel / run_fixed / run_wall_clock
-        gnngls.search.upload     the kernel's inputs copied to the device
+        gnngls.search.upload     inputs not yet on the device copied there
         gnngls.search.kernel     the kernel's launch through its synchronize
         gnngls.search.fetch      the copies back, f32 tour costs on the host
         gnngls.search.iteration  an outer iteration of the per-move engine
           gnngls.search.perturb  the perturbation's rounds
           gnngls.search.ls       the local search's rounds
-      gnngls.evaluate.finish     gaps, initial costs, the result
+      gnngls.evaluate.finish     gaps, initial costs, the result fetched
 
 On the CPU the kernel's twin runs the per-move engine's iterations, so
 their spans nest in gnngls.search.kernel there.  No span opens inside a
 round of the per-move engine, the model's forward or a training step.
 
 Counters: evaluate's `timings["predict_batches"]`, the model's forwards
-(each one batch of `batch_size`, the gated GCN's BatchNorm batch), and
-`timings["host_feature_batches"]`, those of the GAT's batches whose features
-came from the host (`gnngls.dataset.batch` under `gnngls.predict`).  The
+(each one batch of `batch_size`, the gated GCN's BatchNorm batch).  The
 per-move engine counts on the host the lock-step rounds the
 batch ran, each followed by one host sync: `GLSState.rounds`,
 `BatchResult.rounds` and evaluate's `timings["search_rounds"]`, as (local

@@ -10,7 +10,11 @@ The consumers keep D where it was built and give the bits that the NumPy
 matrices gave: `run_fixed_kernel` takes D as an array or as a tensor alike,
 and `evaluate` returns the tours, costs, gaps and guide stack of the same
 pipeline run on `coords_to_distance_matrix`, with the tour costs summed on
-the host.  `timings["d_host_copies"]` counts the D that crossed to the host.
+the host.  The guide matrices are placed on the device too
+(`edge_tensor_to_matrix`, the bits of `edge_vector_to_matrix`), so neither
+`evaluate`, on either model, nor `search_on_predictions` calls a NumPy
+distance or matrix function, and `search_on_predictions` searches as
+`evaluate` does on the same predictions.
 
 The `gpu` cases skip without a CUDA device.  The file imports neither jax nor
 gnngls_tpu, so on the card it runs without the suite's conftest:
@@ -23,10 +27,14 @@ import pytest
 import torch
 
 from gnngls_tpu_torch import evaluate as tev
-from gnngls_tpu_torch.core.graph import edge_vector_to_matrix
+from gnngls_tpu_torch.core import graph
+from gnngls_tpu_torch.core.graph import edge_tensor_to_matrix, edge_vector_to_matrix
 from gnngls_tpu_torch.core.scaler import MinMaxScaler
+from gnngls_tpu_torch.data import dataset as tds
+from gnngls_tpu_torch.data import generate
 from gnngls_tpu_torch.data.dataset import TSPDataset
 from gnngls_tpu_torch.data.generate import coords_to_distance_matrix, coords_to_distance_tensor
+from gnngls_tpu_torch.models.gated_gcn import GatedGCN, GatedGCNConfig
 from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig
 from gnngls_tpu_torch.search import batched
 from gnngls_tpu_torch.search.gls_whole import gls_whole
@@ -149,10 +157,10 @@ def _numpy_pipeline(ds, model, guides, n_iters, pm, dev):
 
 
 @pytest.mark.parametrize("device", DEVICES)
-@pytest.mark.parametrize("guides,with_model,copies", [(["regret_pred"], True, 0),
-                                                      (["weight", "regret_pred"], True, 1),
-                                                      (["weight"], False, 1)])
-def test_evaluate_matches_the_numpy_distances(device, guides, with_model, copies):
+@pytest.mark.parametrize("guides,with_model", [(["regret_pred"], True),
+                                               (["weight", "regret_pred"], True),
+                                               (["weight"], False)])
+def test_evaluate_matches_the_numpy_distances(device, guides, with_model):
     dev = _device(device)
     ds = _dataset(3, 20, 9)
     model = _model() if with_model else None
@@ -163,12 +171,11 @@ def test_evaluate_matches_the_numpy_distances(device, guides, with_model, copies
     for key, value in want.items():
         assert out[key].dtype == value.dtype, key
         np.testing.assert_array_equal(out[key], value, err_msg=key)
-    assert out["timings"]["d_host_copies"] == copies
 
 
 @pytest.mark.parametrize("device", DEVICES)
 def test_evaluate_per_move_engine_takes_the_device_d(device):
-    """The per-move engine gets the tensor as it is; no D crosses."""
+    """The per-move engine gets the device's D, guides and tours as they are."""
     dev = _device(device)
     ds = _dataset(2, 12, 4)
     out = tev.evaluate(ds, model=_model(), n_iters=2, perturbation_moves=3, engine="xla",
@@ -179,4 +186,74 @@ def test_evaluate_per_move_engine_takes_the_device_d(device):
     np.testing.assert_array_equal(out["best_tours"], want.best_tours)
     np.testing.assert_array_equal(out["best_costs"], want.best_costs)
     np.testing.assert_array_equal(out["init_costs"], _host_costs(D, out["init_tours"]))
-    assert out["timings"]["d_host_copies"] == 0
+
+
+def _edge_vectors(case):
+    """(..., E) f32 edge values: uniform at the request shapes, with a 0 and a
+    negative entry in the last case."""
+    B, n = {"tsp100_request": (64, 100), "tsp500_request": (16, 500), "n3": (5, 3),
+            "zero_and_negative": (4, 12)}[case]
+    x = np.random.default_rng(n).random((B, n * (n - 1) // 2), dtype=np.float32)
+    if case == "zero_and_negative":
+        x[:, 3], x[:, 7] = 0.0, -0.75
+    return x, n
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("case", ["tsp100_request", "tsp500_request", "n3",
+                                  "zero_and_negative"])
+def test_device_scatter_matches_numpy(device, case):
+    dev = _device(device)
+    x, n = _edge_vectors(case)
+    got = edge_tensor_to_matrix(torch.as_tensor(x, device=dev), n)
+    assert got.dtype == torch.float32 and got.device.type == dev.type
+    want = edge_vector_to_matrix(x, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+    if case == "zero_and_negative":
+        assert (want < 0).sum() == 2 * len(x)
+
+
+def _gcn():
+    torch.manual_seed(0)
+    return GatedGCN(GatedGCNConfig(hidden_dim=8, num_layers=2, num_neighbors=3))
+
+
+def _refuse_numpy_matrices(monkeypatch):
+    """Make the NumPy distance and matrix functions raise wherever they are
+    reachable: at home, in the dataset's and evaluate's namespaces."""
+    def refuse(*a, **k):
+        raise AssertionError("a NumPy distance or guide matrix was built")
+
+    for mod in (graph, tev):
+        monkeypatch.setattr(mod, "edge_vector_to_matrix", refuse, raising=False)
+    for mod in (generate, tds, tev):
+        monkeypatch.setattr(mod, "coords_to_distance_matrix", refuse, raising=False)
+
+
+@pytest.mark.parametrize("make", [_model, _gcn], ids=["gat", "gated_gcn"])
+def test_evaluate_builds_no_numpy_matrices(make, monkeypatch):
+    kw = dict(n_iters=2, perturbation_moves=3, device="cpu")
+    want = tev.evaluate(_dataset(3, 16, 12), model=make(), **kw)
+    _refuse_numpy_matrices(monkeypatch)
+    one = tev.evaluate(_dataset(3, 16, 12), model=make(), **kw)
+    two = tev.evaluate(_dataset(3, 16, 12), model=make(), guides=["weight", "regret_pred"], **kw)
+    for key in ("guide_stack", "init_tours", "best_tours", "best_costs"):
+        np.testing.assert_array_equal(one[key], want[key], err_msg=key)
+    assert two["guide_stack"].shape == (3, 2, 16, 16)
+    np.testing.assert_array_equal(two["guide_stack"][:, 1], want["guide_stack"][:, 0])
+
+
+def test_search_on_predictions_searches_as_evaluate(monkeypatch):
+    ds, model = _dataset(4, 20, 15), _model()
+    out = tev.evaluate(ds, model=model, n_iters=3, perturbation_moves=4, device="cpu")
+    preds = tev.predict_regret(model, ds, device="cpu")
+    _refuse_numpy_matrices(monkeypatch)
+    res, seconds = tev.search_on_predictions(preds, ds.coords, n_iters=3, perturbation_moves=4,
+                                             device="cpu")
+    assert seconds >= 0
+    for key in ("best_tours", "best_costs"):
+        assert getattr(res, key).dtype == out[key].dtype, key
+        np.testing.assert_array_equal(getattr(res, key), out[key], err_msg=key)
+    np.testing.assert_array_equal(res.chunk_moves[:, -1], out["moves"])
+    np.testing.assert_array_equal(res.trace_costs, out["result"].trace_costs)

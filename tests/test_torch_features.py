@@ -9,7 +9,8 @@ cities in one place.  A split made from coordinates alone builds its
 features on their first read, once, with the bits of `edge_features`.
 `evaluate` gives the same guides, tours, costs and gaps whether the features
 come from D on the device or, for a split given features of its own, from
-the host; `timings["host_feature_batches"]` counts the latter.
+the host; the tests count the latter as the calls of
+`TSPDataset.get_scaled_batch`, the host's scaling.
 
 The `gpu` cases skip without a CUDA device.  The file imports neither jax nor
 gnngls_tpu, so on the card it runs without the suite's conftest:
@@ -84,6 +85,19 @@ def _explicit(ds):
     return dataclasses.replace(ds, features=edge_features(ds.coords))
 
 
+def _host_batches(monkeypatch) -> list:
+    """A list that gets an entry for every batch the host scales."""
+    calls = []
+    real = TSPDataset.get_scaled_batch
+
+    def counted(self, idx):
+        calls.append(1)
+        return real(self, idx)
+
+    monkeypatch.setattr(TSPDataset, "get_scaled_batch", counted)
+    return calls
+
+
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("case", list(SHAPES))
 def test_device_features_match_the_host_batch(device, case):
@@ -150,41 +164,44 @@ CASES = {"gat_kernel": (_gat, "pallas"), "gat_per_move": (_gat, "xla"),
 
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("case", list(CASES))
-def test_evaluate_same_on_device_and_host_features(device, case):
+def test_evaluate_same_on_device_and_host_features(device, case, monkeypatch):
     dev = _device(device)
     make, engine = CASES[case]
     kw = dict(n_iters=3, perturbation_moves=4, batch_size=2, engine=engine, device=dev)
     lazy = _split(_coords(5, 20, 21), seed=22)
     explicit = _explicit(lazy)
+    calls = _host_batches(monkeypatch)
     a = tev.evaluate(lazy, model=make(), **kw)
+    device_batches = len(calls)
     b = tev.evaluate(explicit, model=make(), **kw)
+    host = len(calls) - device_batches
     for key in ("guide_stack", "init_tours", "init_costs", "best_tours", "best_costs",
                 "gaps"):
         assert a[key].dtype == b[key].dtype, key
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     batches = a["timings"]["predict_batches"]
     assert batches == b["timings"]["predict_batches"] == 3
-    host = b["timings"]["host_feature_batches"]
-    assert a["timings"]["host_feature_batches"] == 0
+    assert device_batches == 0
     assert host == (0 if case == "gcn" else batches)
     # neither the device path nor the gated GCN reads them: the lazy split builds none
     assert lazy._features is None
 
 
 @pytest.mark.parametrize("device", DEVICES)
-def test_predict_regret_builds_d_without_distances(device):
+def test_predict_regret_builds_d_without_distances(device, monkeypatch):
     """Without `distances` D is built on the device a batch at a time; the
     predictions are the host path's."""
     dev = _device(device)
     ds = _split(_coords(5, 16, 31))
     model = _gat()
-    counts = {}
-    own = tev.predict_regret(model, ds, batch_size=2, device=dev, counts=counts)
-    assert counts == {"host_feature_batches": 0}
+    calls = _host_batches(monkeypatch)
+    own = tev.predict_regret(model, ds, batch_size=2, device=dev)
+    assert len(calls) == 0
     given = tev.predict_regret(model, ds, batch_size=2, device=dev,
                                distances=coords_to_distance_tensor(ds.coords, dev))
-    host = tev.predict_regret(model, _explicit(ds), batch_size=2, device=dev, counts=counts)
-    assert counts == {"host_feature_batches": 3}
+    assert len(calls) == 0
+    host = tev.predict_regret(model, _explicit(ds), batch_size=2, device=dev)
+    assert len(calls) == 3
     np.testing.assert_array_equal(own, given)
     np.testing.assert_array_equal(own, host)
 
@@ -201,9 +218,9 @@ class _Width(torch.nn.Module):
         return torch.zeros(x.shape[:-1] + (1,), device=x.device)
 
 
-def test_dropped_columns_take_the_host_path():
+def test_dropped_columns_take_the_host_path(monkeypatch):
     ds = _split(_coords(3, 8, 41))
     ds.feat_drop_idx = [0]
-    model, counts = _Width(), {}
-    tev.predict_regret(model, ds, batch_size=2, device="cpu", counts=counts)
-    assert counts == {"host_feature_batches": 2} and model.widths == [0, 0]
+    model, calls = _Width(), _host_batches(monkeypatch)
+    tev.predict_regret(model, ds, batch_size=2, device="cpu")
+    assert len(calls) == 2 and model.widths == [0, 0]

@@ -207,6 +207,10 @@ and prints no result line:
      where a plain product moves (TF32), and at "highest": a tsp100 forward through
      K2, predict_regret on 64 instances and one `sep` train step give the
      same bits, and the caller's setting reads back after each call.
+ 20. nearest-neighbour construction (csrc/nearest_neighbor.cu) against its
+     plain twin, the n - 1 steps of batched ops, at the fixed cells' request
+     shapes (64 x 100, 16 x 500, 128 x 100): one launch, the same tours,
+     both timed.
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -296,6 +300,8 @@ REPEAT_LABEL_INST = 8
 # instances at n = BEYOND_N, and the GLS oracle on ORACLE_CHUNK of them (the default
 # chunk of data/generate.generate_instances_sharded); (c) ROUTE_INST tsp100 instances.
 BEYOND_N, BEYOND_N2, BEYOND_INST, ORACLE_CHUNK, ROUTE_INST = 1100, 2100, 2, 512, 8
+# Phase 20: construction at the fixed cells' request shapes (B, n).
+CONSTRUCT_SHAPES = ((64, 100), (16, 500), (128, 100))
 
 
 class SmokeFailure(Exception):
@@ -525,8 +531,9 @@ def phase3_main(model, ds, dev):
     wall = time.time() - t
     counts = dict(kernels.launches)
     log(f"phase 3: evaluate on {len(ds)} instances in {wall:.1f} s; launches {counts}")
-    require(counts.get("gat_group", 0) > 0 and counts.get("gls_whole", 0) > 0,
-            f"a kernel of the main path did not launch: {counts}")
+    require(counts.get("gat_group", 0) > 0 and counts.get("gls_whole", 0) > 0
+            and counts.get("nearest_neighbor", 0) == 1,
+            f"a kernel of the main path did not launch (construction once): {counts}")
     n = ds.n_nodes
     from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
 
@@ -784,7 +791,8 @@ def phase7_tsp500(model, dev):
     batches = -(-N_INST500 // BATCH500)
     log(f"phase 7: tsp500 path, {N_INST500} instances: oracle {oracle_s:.1f} s, evaluate "
         f"{eval_s:.1f} s; launches {counts}")
-    want = {"gat_group_chunked": model.cfg.depth * batches, "gat_group": 0, "gls_whole": 2}
+    want = {"gat_group_chunked": model.cfg.depth * batches, "gat_group": 0, "gls_whole": 2,
+            "nearest_neighbor": 2}
     require(all(counts.get(k, 0) == v for k, v in want.items()),
             f"tsp500 path launches {counts}, expected {want}")
     D = coords_to_distance_matrix(ds.coords).astype(np.float64)
@@ -1334,7 +1342,7 @@ def phase14c_wall_clock(model, ds, dev):
     out = evaluate(ds, model=model, guides=["regret_pred"], batch_size=BATCH, device=dev)
     wall = time.time() - t
     counts = dict(kernels.launches)
-    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH)}
+    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH), "nearest_neighbor": 1}
     log(f"phase 14c: evaluate with the default time limit on {len(ds)} instances in "
         f"{wall:.1f} s; launches {counts}")
     require(counts == want, f"wall-clock main path launches {counts}, expected {want}")
@@ -1407,8 +1415,9 @@ def phase14e_protocol(ds, dev):
     budget = calibrate_protocol_iters(ds, target_moves=target, guides=["weight"], device=dev)
     calib_s = time.time() - t
     counts = dict(kernels.launches)
-    require(counts.get("gls_whole", 0) >= 2 and set(counts) == {"gls_whole"},
-            f"the calibration's probes did not run through K1 alone: {counts}")
+    require(counts.get("gls_whole", 0) >= 2 and set(counts) == {"gls_whole", "nearest_neighbor"}
+            and counts["nearest_neighbor"] == counts["gls_whole"],
+            f"the calibration's probes did not run through construction and K1 alone: {counts}")
     out = evaluate(ds, guides=["weight"], n_iters=budget, device=dev)
     reached = float(np.mean(out["moves"]))
     log(f"phase 14e: 10 s protocol at n={ds.n_nodes}: n_iters={budget} reaches {reached:.1f} "
@@ -1638,7 +1647,7 @@ def serve_trained(model, sub, dev):
     out = evaluate(sub, model=model, guides=["regret_pred"], n_iters=N_ITERS,
                    perturbation_moves=PM, batch_size=BATCH, device=dev)
     counts = {k: v for k, v in kernels.launches.items() if v}
-    want = {"gat_group": model.cfg.depth, "gls_whole": 1}
+    want = {"gat_group": model.cfg.depth, "gls_whole": 1, "nearest_neighbor": 1}
     require(counts == want, f"trained weights served with launches {counts}, expected {want}")
     for b in range(len(sub)):
         require(is_valid_tour(sub.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
@@ -2532,7 +2541,8 @@ def phase18b_search(ds, data, preds100, preds500, per_move, guide64, init64, dev
             runs.append(search_on_predictions(preds, coords, n_iters=n_iters,
                                               perturbation_moves=PM, device=dev)[0])
             counts = {k: v for k, v in kernels.launches.items() if v}
-            require(counts == {"gls_whole": 1}, f"{what}: launches {counts}")
+            require(counts == {"gls_whole": 1, "nearest_neighbor": 1},
+                    f"{what}: launches {counts}")
         same_search(*runs, what)
         log(f"  {what}: search_on_predictions on {len(coords)} instances, n={coords.shape[1]} "
             f"(n_iters {n_iters}, pm {PM}): tours, costs, moves and traces equal "
@@ -2851,6 +2861,37 @@ def phase19(model, ds, dev, card):
     log(f"phase 19: done in {time.time() - t:.1f} s on {card}")
 
 
+def phase20_construction(dev, card, launches):
+    """The nearest-neighbour kernel against its twin, the old chain of
+    batched ops, at the fixed cells' request shapes on their guides'
+    kind (uniform regret-like values, f32), bit for bit; both timed with
+    CUDA events, the twin's time its host dispatch of n - 1 steps."""
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.search.construct import nearest_neighbor_batch, nearest_neighbor_plain
+
+    rows = []
+    for B, n in CONSTRUCT_SHAPES:
+        W = torch.rand((B, n, n), generator=torch.Generator().manual_seed(B * n)).to(dev)
+        kernels.reset_launch_counts()
+        got = nearest_neighbor_batch(W)
+        require(dict(kernels.launches) == {"nearest_neighbor": 1},
+                f"construction at B={B} n={n}: launches {dict(kernels.launches)}")
+        require(torch.equal(got, nearest_neighbor_plain(W)),
+                f"construction at B={B} n={n}: the kernel's tours differ from the twin's")
+        ms = cuda_ms(lambda: nearest_neighbor_batch(W), reps=20)
+        plain = cuda_ms(lambda: nearest_neighbor_plain(W), reps=3)
+        steps = B * (n - 1) * n  # each step reads one row of n entries
+        log(f"phase 20 ({card}): construction B={B} n={n}: kernel {ms:.4f} ms, the twin's "
+            f"{n - 1} steps {plain:.3f} ms ({plain / ms:.1f}x), tours equal")
+        rows.append(row("nearest_neighbor", "gnngls_tpu_torch/csrc/nearest_neighbor.cu",
+                        "none: jax.lax.scan, gnngls_tpu/search/construct.py:19", launches, 0.0,
+                        ms, plain, 2 * steps, 4 * steps,
+                        f"B={B} n={n} f32; launches from phase 3's evaluate"))
+    return rows
+
+
 def drive(k4_against) -> int:
     """Every phase in order, then the `kernels` line and the result line."""
     import torch
@@ -2945,6 +2986,7 @@ def drive(k4_against) -> int:
     phase18_repeat(model, ds, data, raw, per_move, guide64, init64, first, served, dev,
                    card)
     phase19(model, ds, dev, card)
+    rows += phase20_construction(dev, card, counts.get("nearest_neighbor", 0))
     bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
     require(not bad, f"imported modules the port must not use: {bad}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,8 +9,10 @@ number of iterations.  Its hot spots are CUDA kernels written by hand,
 each with a plain PyTorch twin in the same module that runs whenever the
 tensors lie on the CPU: the GAT group partials, one-shot
 (`csrc/gat_group.cu`) or, for large n, by sorted prefix sums
-(`csrc/gat_sorted.cu`), and the whole GLS (`csrc/gls_whole.cu`), whose state
-lives in shared memory up to n=138 and in global memory up to n=1024.
+(`csrc/gat_sorted.cu`), the nearest-neighbour construction of the initial
+tours (`csrc/nearest_neighbor.cu`, one launch a batch), and the whole GLS
+(`csrc/gls_whole.cu`), whose state lives in shared memory up to n=138 and in
+global memory up to n=8192.
 
 Subpackages:
   core     static K_n line-graph topology, feature scalers

@@ -26,7 +26,8 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gat_group.cu", "gat_group_mxu.cu", "gat_sorted.cu", "gls_whole.cu", "rank_sums.cu")
+SOURCES = ("gat_group.cu", "gat_group_mxu.cu", "gat_sorted.cu", "gls_whole.cu", "rank_sums.cu",
+           "nearest_neighbor.cu")
 HEADERS = ("smem.cuh",)
 SMEM_EXCEEDED = 9000  # csrc/smem.cuh's kSmemExceeded: a block's shared memory does not fit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,6 +110,11 @@ def library() -> ctypes.CDLL:
     lib.gls_whole_max_n.restype = I
     lib.rank_sums_launch.argtypes = [P, P, P, I, I, I, I, I, P, P, I, P]
     lib.rank_sums_launch.restype = I
+    L = ctypes.c_int64
+    lib.nearest_neighbor_launch.argtypes = [P, L, L, L, I, I, I, I, P, P, I, P]
+    lib.nearest_neighbor_launch.restype = I
+    lib.nearest_neighbor_workspace_bytes.argtypes = [I, I]
+    lib.nearest_neighbor_workspace_bytes.restype = L
     lib.gnngls_cuda_error_string.argtypes = [I]
     lib.gnngls_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,7 +2,10 @@
 
 * `nearest_neighbor_batch`: greedy min-guide tour from the depot, closed at
   the depot; ties go to the lowest city id, as Python's min() over
-  G.neighbors does in the reference.
+  G.neighbors does in the reference.  CUDA guides take one launch of
+  csrc/nearest_neighbor.cu for the batch (f32 or f64; other dtypes raise);
+  CPU tensors take the plain twin `nearest_neighbor_plain`, n - 1 steps of
+  batched torch ops.  Both give the same tours, bit for bit.
 * `probabilistic_nearest_neighbour` and its best-of-n: the next city is
   sampled with weights from the (inverted) guide row, with the reference's
   guards.  A categorical draw is argmax(logits + g) with g Gumbel noise, which
@@ -19,11 +22,44 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from .moves import tour_costs
 
 
 def nearest_neighbor_batch(W: torch.Tensor, depot: int = 0) -> torch.Tensor:
-    """(B, n, n) guide matrices -> (B, n+1) int32 tours."""
+    """(B, n, n) guide matrices -> (B, n+1) int32 tours on W's device.
+
+    A CUDA W, f32 or f64 at any strides, is read in place by one kernel
+    launch; a CPU W takes `nearest_neighbor_plain`."""
+    if W.dim() != 3 or W.shape[1] != W.shape[2]:
+        raise ValueError(f"nearest_neighbor_batch: expected W (B, n, n), got {tuple(W.shape)}")
+    if W.device.type != "cuda":
+        return nearest_neighbor_plain(W, depot)
+    if W.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"nearest_neighbor_batch: a CUDA W must be float32 or float64, "
+                        f"got {W.dtype}")
+    B, n, _ = W.shape
+    if not 0 <= depot < n:
+        raise ValueError(f"nearest_neighbor_batch: depot {depot} is not one of {n} cities")
+    tours = torch.empty((B, n + 1), dtype=torch.int32, device=W.device)
+    if B == 0:
+        return tours
+    lib = kernels.library()
+    seen = torch.empty(lib.nearest_neighbor_workspace_bytes(B, n), dtype=torch.uint8,
+                       device=W.device)
+    err = lib.nearest_neighbor_launch(W.data_ptr(), *W.stride(), B, n, depot,
+                                      int(W.dtype == torch.float64), seen.data_ptr(),
+                                      tours.data_ptr(), W.device.index, kernels.stream_of(W))
+    kernels.check(err, "nearest_neighbor_launch")
+    kernels.launches["nearest_neighbor"] += 1
+    return tours
+
+
+def nearest_neighbor_plain(W: torch.Tensor, depot: int = 0) -> torch.Tensor:
+    """The twin of the kernel: (B, n, n) guides -> (B, n+1) int32 tours, one
+    step of batched ops a city.  Visited cities read +inf; the next city is
+    the lowest id whose entry equals the row's least, so a row whose
+    unvisited entries are all +inf picks city 0, visited or not."""
     B, n, _ = W.shape
     ar = torch.arange(n, device=W.device)
     b = torch.arange(B, device=W.device)

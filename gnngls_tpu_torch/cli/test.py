@@ -5,8 +5,15 @@ is a split file next to instances.npz and scalers.json (or scalers.pkl), or
 a reference listing of gpickles; model_path a gnngls_tpu npz checkpoint or a
 reference .pt checkpoint, with params.json beside it.  A params.json with
 "arch": "gated_gcn" names the residual gated GCN instead, its widths under
-`GatedGCNConfig`'s names, and model_path an npz of its state-dict arrays
-(`models.gated_gcn.load_model`); without "arch" it is the GAT.  The default
+`GatedGCNConfig`'s names (hidden_dim, num_layers, mlp_layers,
+num_neighbors, ...), and model_path an npz of its state-dict arrays
+(`models.gated_gcn.load_model`); "arch": "difusco" names DIFUSCO's
+denoising GNN, its settings under `DifuscoConfig`'s names (hidden_dim,
+num_layers, sparse_factor, diffusion_steps, inference_steps, schedule,
+aggregation, norm; the published TSP-500 values where left out), its draws
+from evaluate's default seed, and model_path an npz of the published
+GNNEncoder's state-dict arrays (`models.difusco.load_model`);
+without "arch" it is the GAT.  The default
 budget is the reference's: 10 s of wall clock (`--time_limit`), here for the whole
 batch at once; `--n_iters` fixes the outer iterations instead, and
 `--protocol_10s` calibrates them to the reference's 10 s move counts.
@@ -51,7 +58,7 @@ def main(argv=None):
 
     from .. import evaluate as ev
     from ..data import dataset as ds
-    from ..models import gated_gcn
+    from ..models import difusco, gated_gcn
     from ..models.convert import load_model
     from ..models.regret_gat import RegretGNNConfig
 
@@ -72,6 +79,10 @@ def main(argv=None):
             names = {f.name for f in dataclasses.fields(gated_gcn.GatedGCNConfig)}
             cfg = gated_gcn.GatedGCNConfig(**{k: v for k, v in pj.items() if k in names})
             model = gated_gcn.load_model(args.model_path, cfg, device=args.device)
+        elif arch == "difusco":
+            names = {f.name for f in dataclasses.fields(difusco.DifuscoConfig)}
+            cfg = difusco.DifuscoConfig(**{k: v for k, v in pj.items() if k in names})
+            model = difusco.load_model(args.model_path, cfg, device=args.device)
         elif arch == "regret_gat":
             if "efeat_drop_idx" in pj:
                 test_set.feat_drop_idx = list(pj["efeat_drop_idx"])

@@ -19,14 +19,17 @@ kernels' plain twins run.  The engine names are gnngls_tpu's.
 best-improvement, n within its range), on the card and on the CPU alike; the
 JAX package's TPU-only routing (the n >= 50 cutoff) does not apply.
 
-Two models guide the search: the edge-regret GAT (`RegretGNN`, through
-`predict_regret`: scaled regret per edge, placed into (n, n) matrices) and
-the residual gated GCN (`GatedGCN`, through `predict_edge_guide`: (n, n)
+Three models guide the search: the edge-regret GAT (`RegretGNN`, through
+`predict_regret`: scaled regret per edge, placed into (n, n) matrices), the
+residual gated GCN (`GatedGCN`, through `predict_edge_guide`: (n, n)
 guides from its edge probabilities, computed on the device from the
-distance matrices).  `evaluate` dispatches on the model's type; either
-model's matrices are the "regret_pred" guide.
+distance matrices) and DIFUSCO's denoising GNN (`Difusco`, through
+`predict_diffusion_guide`: (n, n) guides from the heatmap its denoising
+loop leaves on the k-NN edge list, formed from the same matrices).
+`evaluate` dispatches on the model's type; each model's matrices are the
+"regret_pred" guide.
 
-Each step of `evaluate`, `predict_regret` and `predict_edge_guide` is a
+Each step of `evaluate` and of the three predict functions is a
 named span ("gnngls.*", utils/profiling.py lists the tree), which a profiler
 records and the benchmark reads.
 """
@@ -46,6 +49,7 @@ from .core.device import resolve_device
 from .core.graph import edge_tensor_to_matrix
 from .data.dataset import TSPDataset, scaled_edge_features
 from .data.generate import coords_to_distance_tensor
+from .models.difusco import Difusco, edge_list, heatmap_guide
 from .models.gated_gcn import GatedGCN, edge_guide, knn_tags
 from .models.regret_gat import RegretGNN, exact_f32_matmuls
 from .search import batched, gls_whole
@@ -124,8 +128,52 @@ def predict_edge_guide(model: GatedGCN, dataset: TSPDataset, Ds: torch.Tensor, *
     return np.concatenate(outs, axis=0)
 
 
+@torch.no_grad()
+@annotate("gnngls.predict")
+def predict_diffusion_guide(model: Difusco, dataset: TSPDataset, Ds: torch.Tensor, *,
+                            batch_size: int = 64, device=None, seed: int = 0) -> np.ndarray:
+    """DIFUSCO's (N, n, n) float32 guides (`difusco.heatmap_guide`) from
+    the coordinates and the (N, n, n) distance matrices Ds, `batch_size`
+    instances at a time.  For a batch: the edge list from Ds on `device`,
+    then the model's denoising steps over the whole batch with the state
+    kept there, one forward a step; the last step's posterior is the
+    heatmap.
+
+    The draws: one `torch.Generator` on `device`, seeded with `seed`, for
+    the call; each batch in turn draws with `torch.rand` one (B E,) tensor
+    for x_T = [u < 1/2] and then one for each step with s > 0, in that
+    order, x_s = [u < clamp(pi, 0, 1)].  That order is part of the
+    contract: a reference replays it to draw the same u."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    steps = model.steps()
+    outs = []
+    with exact_f32_matmuls():
+        for s0 in range(0, len(dataset), batch_size):
+            with annotate("gnngls.predict.inputs"):
+                D = torch.as_tensor(Ds[s0:s0 + batch_size], device=dev)
+                coords = torch.as_tensor(dataset.coords[s0:s0 + batch_size], device=dev)
+                nbr = edge_list(D, model.cfg.sparse_factor)
+                x = torch.rand(nbr.numel(), generator=gen, device=dev).view(nbr.shape) < 0.5
+            for t, s in steps:
+                with annotate("gnngls.predict.step"):
+                    with annotate("gnngls.predict.forward"):
+                        p = model(coords, x, t, nbr)
+                    with annotate("gnngls.predict.posterior"):
+                        pi = model.posterior(p, x, t, s)
+                        if s > 0:
+                            u = torch.rand(nbr.numel(), generator=gen, device=dev)
+                            x = u.view(nbr.shape) < pi.clamp(0, 1)
+            with annotate("gnngls.predict.guide"):
+                guide = heatmap_guide(pi.clamp(min=0), nbr)
+            with annotate("gnngls.predict.fetch"):
+                outs.append(guide.cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
 @annotate("gnngls.evaluate")
-def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = None,
+def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, Difusco, None] = None,
              guides: List[str] = ("regret_pred",),
              time_limit: Optional[float] = 10.0,
              n_iters: Optional[int] = None,
@@ -133,10 +181,12 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
              first_improvement: bool = False,
              batch_size: int = 64,
              engine: str = "auto",
-             device=None) -> dict:
+             device=None,
+             seed: int = 0) -> dict:
     """Evaluate GLS, guided by the model's predictions when 'regret_pred' is
     among `guides` (cycled per outer iteration): the GAT's regret matrices,
-    or the gated GCN's guides.
+    the gated GCN's guides, or DIFUSCO's, whose draws come from `seed` (a
+    port-only keyword; `predict_diffusion_guide`).
 
     The budget is `n_iters` outer iterations when given, else `time_limit`
     seconds of wall clock for the whole batch (one deadline, as in
@@ -151,8 +201,10 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
 
     `timings` holds inference_s (predictions and their matrices), search_s
     (the search's chunk stamps), total_s (the whole call), predict_batches
-    (the model's forwards as they ran, each one batch of `batch_size`
-    instances; 0 without a model), the peak device memory and, from the per-move engine,
+    (the model's forwards as they ran, each on one batch of `batch_size`
+    instances; 0 without a model; DIFUSCO runs one a denoising step, so 50
+    a batch at its published setting), denoise_steps (those forwards for
+    DIFUSCO, else 0), the peak device memory and, from the per-move engine,
     search_rounds: the lock-step rounds the batch ran (local search,
     perturbation); None from the kernel.
     """
@@ -184,7 +236,10 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
             raise ValueError("guide 'regret_pred' needs a model")
         counter = model.register_forward_pre_hook(lambda *_: forwards.append(1))
         try:
-            if isinstance(model, GatedGCN):
+            if isinstance(model, Difusco):
+                guide_mats = predict_diffusion_guide(model, dataset, Ds, batch_size=batch_size,
+                                                     device=dev, seed=seed)
+            elif isinstance(model, GatedGCN):
                 guide_mats = predict_edge_guide(model, dataset, Ds, batch_size=batch_size,
                                                 device=dev)
             else:
@@ -198,7 +253,7 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
     t1 = time.time()
 
     with annotate("gnngls.construct"):
-        if guide_mats is not None:  # the gated GCN's guides come up here, once
+        if guide_mats is not None:  # the edge models' guides come up here, once
             guide_mats = torch.as_tensor(guide_mats, device=dev)
         init_t = batched.nearest_neighbor_batch(Ds if guide_mats is None else guide_mats)
     with annotate("gnngls.evaluate.guide_stack"):
@@ -235,6 +290,7 @@ def evaluate(dataset: TSPDataset, *, model: Union[RegretGNN, GatedGCN, None] = N
                         "search_s": result.chunk_times[-1] - result.chunk_times[0],
                         "total_s": time.time() - t_start,
                         "predict_batches": len(forwards),
+                        "denoise_steps": len(forwards) if isinstance(model, Difusco) else 0,
                         # torch.cuda.max_memory_allocated over the call; None on the CPU
                         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                               if dev.type == "cuda" else None),

@@ -28,7 +28,8 @@ as (B n n, H) rows, which gives the published BatchNorm2d's statistics
 without its two transposed copies.  Module and parameter names are the
 published ones, so a state dict of the published model loads as it is.
 The one departure: `knn_tags` breaks equal distances toward the lower city
-id, where the published `argpartition` leaves the order undefined.
+id (`nearest_cities`, which DIFUSCO's edge list shares), where the published
+`argpartition` leaves the order undefined.
 
 `edge_guide` turns logits into the search's undirected guide,
 1 - (p_ij + p_ji) / 2 with 0 on the diagonal: low where the model is
@@ -157,16 +158,26 @@ class GatedGCN(nn.Module):
         return self.mlp_edges(e)
 
 
+def nearest_cities(D: torch.Tensor, k: int, *, include_self: bool = False) -> torch.Tensor:
+    """(B, n, n) distances -> (B, n, min(k, m)) int64 on D's device: each
+    row's k nearest cities, nearest first, equal distances going to the lower
+    city id (a stable sort); m = n - 1 with the row's own city left out, n
+    with it among them (`include_self`)."""
+    n = D.shape[-1]
+    if not include_self:
+        D = D.masked_fill(torch.eye(n, dtype=torch.bool, device=D.device), float("inf"))
+    order = torch.sort(D, dim=-1, stable=True).indices
+    return order[..., :min(k, n if include_self else n - 1)]
+
+
 def knn_tags(D: torch.Tensor, k: int) -> torch.Tensor:
     """(B, n, n) distances -> (B, n, n) int64 tags on D's device: 1 for the
-    min(k, n - 1) nearest other cities of each row, equal distances going to
-    the lower city id, 2 on the diagonal, 0 elsewhere."""
+    min(k, n - 1) nearest other cities of each row (`nearest_cities`), 2 on
+    the diagonal, 0 elsewhere."""
     n = D.shape[-1]
-    eye = torch.eye(n, dtype=torch.bool, device=D.device)
-    order = torch.sort(D.masked_fill(eye, float("inf")), dim=-1, stable=True).indices
     tags = torch.zeros(D.shape, dtype=torch.int64, device=D.device)
-    tags.scatter_(-1, order[..., :min(k, n - 1)], 1)
-    return tags.masked_fill_(eye, 2)
+    tags.scatter_(-1, nearest_cities(D, k), 1)
+    return tags.masked_fill_(torch.eye(n, dtype=torch.bool, device=D.device), 2)
 
 
 def edge_guide(logits: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,14 @@ NVTX ranges); there is no other switch.  Their names and nesting:
         gnngls.predict.forward   the layers and the edge MLP: enqueue
         gnngls.predict.guide     softmax, 1 - (p + p^T) / 2: enqueue
         gnngls.predict.fetch     the copy back: the host waits on the device
-      gnngls.construct           nearest neighbour (the gated GCN's guides go up here)
+      gnngls.predict             predict_diffusion_guide (DIFUSCO), a batch:
+        gnngls.predict.inputs    coordinates up, the k-NN edge list from D, the first draw
+        gnngls.predict.step      a denoising step (50 a batch at the published setting):
+          gnngls.predict.forward    the network on the state: enqueue
+          gnngls.predict.posterior  pi and the next draw (the heatmap at s = 0)
+        gnngls.predict.guide     the heatmap scattered into (n, n), 1 - (h + h^T) / 2
+        gnngls.predict.fetch     the copy back: the host waits on the device
+      gnngls.construct           nearest neighbour (the edge models' guides go up here)
       gnngls.evaluate.guide_stack  the guides stacked on the device
       gnngls.search              run_fixed_kernel / run_fixed / run_wall_clock
         gnngls.search.upload     inputs not yet on the device copied there
@@ -45,7 +52,9 @@ their spans nest in gnngls.search.kernel there.  No span opens inside a
 round of the per-move engine, the model's forward or a training step.
 
 Counters: evaluate's `timings["predict_batches"]`, the model's forwards
-(each one batch of `batch_size`, the gated GCN's BatchNorm batch).  The
+(each on one batch of `batch_size`, the gated GCN's BatchNorm batch;
+DIFUSCO's one a denoising step), and `timings["denoise_steps"]`, DIFUSCO's
+forwards (0 for the other models).  The
 per-move engine counts on the host the lock-step rounds the
 batch ran, each followed by one host sync: `GLSState.rounds`,
 `BatchResult.rounds` and evaluate's `timings["search_rounds"]`, as (local

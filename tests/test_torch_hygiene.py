@@ -16,7 +16,7 @@
   JAX package's, and every keyword-only parameter of a public function of
   gnngls_tpu is accepted by the function at the same path in the port (read
   from both packages' sources), but for the structural differences named in
-  STRUCTURAL.
+  STRUCTURAL; and the keywords that `evaluate` adds are those PORT_ONLY names.
 """
 
 import ast
@@ -214,6 +214,15 @@ STRUCTURAL = {
         "pytrees: the port saves an nn.Module and its optimizer"),
 }
 
+# Keyword-only parameters of the port that gnngls_tpu's function at the same
+# path lacks, each named with its reason.
+PORT_ONLY = {
+    ("evaluate.py", "evaluate"): {
+        "model": "the nn.Module in place of params, bn_state and model_cfg (STRUCTURAL)",
+        "device": "the port runs on a card or, when asked, on the CPU",
+        "seed": "the draws of DIFUSCO's denoising loop, the one model that samples"},
+}
+
 
 def _public_functions(path: pathlib.Path) -> dict:
     """name -> ast.arguments of each public top-level function and method."""
@@ -253,3 +262,12 @@ def test_port_accepts_every_jax_keyword():
         t = _public_functions(port_root / rel)[name]
         assert set(params) <= {a.arg for a in j.kwonlyargs}
         assert not set(params) & {a.arg for a in t.args + t.kwonlyargs}
+
+
+def test_port_only_keywords_are_named():
+    for (rel, name), params in PORT_ONLY.items():
+        j = _public_functions(ROOT / "gnngls_tpu" / rel)[name]
+        t = _public_functions(ROOT / "gnngls_tpu_torch" / rel)[name]
+        extra = ({a.arg for a in t.args + t.kwonlyargs}
+                 - {a.arg for a in j.args + j.kwonlyargs})
+        assert extra == set(params), (rel, name)

@@ -25,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gnngls_tpu_torch import evaluate as tev
 from gnngls_tpu_torch.data import dataset as tds
+from gnngls_tpu_torch.models.difusco import Difusco, DifuscoConfig
 from gnngls_tpu_torch.models.gated_gcn import GatedGCN, GatedGCNConfig
 from gnngls_tpu_torch.models.regret_gat import RegretGNN, RegretGNNConfig
 from gnngls_tpu_torch.search import batched
@@ -65,6 +66,11 @@ GCN = dict({k: v for k, v in TREE.items()
                          "gnngls.evaluate.to_matrix")},
            **{"gnngls.predict.inputs": "gnngls.predict",
               "gnngls.predict.guide": "gnngls.predict"})
+# DIFUSCO's predict: its inputs, then each denoising step's forward and
+# posterior, then the guide
+DIFFUSION = dict(GCN, **{"gnngls.predict.step": "gnngls.predict",
+                         "gnngls.predict.forward": "gnngls.predict.step",
+                         "gnngls.predict.posterior": "gnngls.predict.step"})
 ROUNDS = ("gnngls.search.perturb", "gnngls.search.ls")
 TICK = 0.125  # s a reading of the per-move engine's clock: 2 iterations in 0.3 s
 
@@ -84,6 +90,9 @@ def _model(engine="kernel"):
     torch.manual_seed(0)
     if engine == "gcn":
         return GatedGCN(GatedGCNConfig(hidden_dim=8, num_layers=2, num_neighbors=3))
+    if engine == "difusco":
+        return Difusco(DifuscoConfig(hidden_dim=32, num_layers=2, sparse_factor=3,
+                                     inference_steps=3))
     return RegretGNN(RegretGNNConfig(embed_dim=8, n_heads=2)).eval()
 
 
@@ -114,14 +123,14 @@ def _profiled(k, engine, **kw):
     return out, _spans(prof)
 
 
-@pytest.mark.parametrize("engine", ["kernel", "per_move", "gcn", "host_features"])
+@pytest.mark.parametrize("engine", ["kernel", "per_move", "gcn", "host_features", "difusco"])
 def test_span_tree_and_rounds(engine, monkeypatch):
     kw = dict(time_limit=0.3) if engine == "per_move" else dict(n_iters=3)
     if engine == "per_move":
         monkeypatch.setattr(batched, "time", TickClock())
     out, spans = _profiled(3, engine, **kw)
     res = out["result"]
-    tree = {"gcn": GCN, "host_features": HOST}.get(engine, TREE)
+    tree = {"gcn": GCN, "host_features": HOST, "difusco": DIFFUSION}.get(engine, TREE)
     want = dict(tree, **(PER_MOVE if engine == "per_move" else KERNEL))
     gnngls = [(n, p) for n, p in spans if n.startswith("gnngls.")]
     assert {n for n, _ in gnngls} == set(want)

@@ -84,10 +84,12 @@ and prints no result line:
      phase 3; (c) the default main path, with the launch counts reset just
      before and read just after: evaluate over the 500 instances, guide
      regret_pred, the default time_limit of 10 s, batch 64 (64 K2
-     launches, no K1): tours, chunk boundaries, the deadline, progress
-     rows, moves/s; (d) first-improvement: evaluate(guide weight,
-     n_iters 20, pm 20) on instances 0-15 against the committed JAX
-     fixture (moves equal, best costs within rtol 1e-6); (e) the 10 s
+     launches, one perturbation kernel launch an outer iteration, no
+     K1): tours, chunk boundaries, the deadline, progress rows (a row for
+     every move: no trace saturates), moves/s; (d) first-improvement:
+     evaluate(guide weight, n_iters 20, pm 20) on instances 0-15 against
+     the committed JAX fixture (moves equal, best costs within rtol
+     1e-6); (e) the 10 s
      protocol: calibrate_protocol_iters on the 500 instances at
      REFERENCE_10S_MOVES[100], weight guide, through K1; (f) the shipped
      checkpoint exported to a reference .pt under build/ and loaded back:
@@ -211,6 +213,14 @@ and prints no result line:
      plain twin, the n - 1 steps of batched ops, at the fixed cells' request
      shapes (64 x 100, 16 x 500, 128 x 100): one launch, the same tours,
      both timed.
+ 21. the per-move engine's perturbation kernel (csrc/gls_perturb.cu) against
+     its plain twin `_perturbation` at B = 500 and 64, n = 100, pm = 20, from
+     a seeded state three outer iterations past the initial local search,
+     under a regret-like guide with a cost trace: one launch; tours, costs,
+     penalties, trace rows and counts, work and rounds bit for bit; both
+     timed with CUDA events around the call, synchronised (the kernel's time
+     includes the fetch of its rounds, the twin's its host dispatch and a
+     sync a round).
      Then the `kernels` JSON line and the result line.
 It imports neither jax nor gnngls_tpu, pandas, networkx or matplotlib.
 """
@@ -302,6 +312,9 @@ REPEAT_LABEL_INST = 8
 BEYOND_N, BEYOND_N2, BEYOND_INST, ORACLE_CHUNK, ROUTE_INST = 1100, 2100, 2, 512, 8
 # Phase 20: construction at the fixed cells' request shapes (B, n).
 CONSTRUCT_SHAPES = ((64, 100), (16, 500), (128, 100))
+# Phase 21: the perturbation kernel at the default 10 s path's batch and at a
+# fixed cell's, (B, n), pm = PM; outer iterations run before the timed state.
+PERTURB_SHAPES, PERTURB_WARM_ITERS = ((500, 100), (64, 100)), 3
 
 
 class SmokeFailure(Exception):
@@ -1342,13 +1355,14 @@ def phase14c_wall_clock(model, ds, dev):
     out = evaluate(ds, model=model, guides=["regret_pred"], batch_size=BATCH, device=dev)
     wall = time.time() - t
     counts = dict(kernels.launches)
-    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH), "nearest_neighbor": 1}
+    res = out["result"]
+    want = {"gat_group": model.cfg.depth * -(-len(ds) // BATCH), "nearest_neighbor": 1,
+            "gls_perturb": len(res.chunk_times) - 1}  # one a chunk, of one outer iteration
     log(f"phase 14c: evaluate with the default time limit on {len(ds)} instances in "
         f"{wall:.1f} s; launches {counts}")
     require(counts == want, f"wall-clock main path launches {counts}, expected {want}")
     require(out["engine"] == "xla" and out["trace_mode"] == "per-move",
             f"wall-clock evaluate ran engine {out['engine']!r}")
-    res = out["result"]
     for b in range(len(ds)):
         require(is_valid_tour(ds.n_nodes, out["best_tours"][b]), f"instance {b}: invalid tour")
     times = res.chunk_times
@@ -1359,8 +1373,9 @@ def phase14c_wall_clock(model, ds, dev):
     require(bool((np.diff(res.chunk_moves, axis=1) >= 0).all()), "chunk moves fell")
     cap = res.trace_costs.shape[1]
     saturated = int((res.trace_n > cap).sum())
+    require(saturated == 0, f"{saturated} traces saturated at {cap} rows")
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
+        warnings.simplefilter("error")
         t = time.time()
         rows = search_progress_records(ds, out)
         rows_s = time.time() - t
@@ -2892,6 +2907,88 @@ def phase20_construction(dev, card, launches):
     return rows
 
 
+def perturbation_work(work, n, B):
+    """(operations, bytes) of one perturbation phase for this run's data: its
+    rounds (the kernel reports them) times the operations of a round
+    (`gls_work`'s 46 n) and the entries a round must read, each once: the
+    guide, P and D on the tour's edges (3 n), and at each of the two
+    endpoints the rows of D and P of the endpoint and of its predecessor,
+    which both of its one-to-all scans read (4 n); the tours read and
+    written, k and the costs."""
+    rounds = float(work.double().sum())
+    return rounds * 46 * n, 4 * rounds * (3 * n + 2 * 4 * n) + B * (16 * (n + 1) + 12)
+
+
+def phase21_perturbation(dev, card, launches):
+    """The perturbation kernel against its twin `_perturbation` on the card,
+    bit for bit, and both timed (module docstring)."""
+    import numpy as np
+    import torch
+
+    from gnngls_tpu_torch import kernels
+    from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+    from gnngls_tpu_torch.search import gls_perturb
+    from gnngls_tpu_torch.search import local_search as ls
+    from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
+
+    rows = []
+    for B, n in PERTURB_SHAPES:
+        rng = np.random.default_rng(2100 + B)
+        D = torch.as_tensor(coords_to_distance_matrix(rng.random((B, n, 2)).astype(np.float32)),
+                            device=dev)
+        R = torch.as_tensor(rng.random((B, n, n)).astype(np.float32), device=dev)
+        G = R + R.transpose(1, 2)
+        state = ls.gls_init(D, nearest_neighbor_batch(D), trace_cap=4096)
+        for _ in range(PERTURB_WARM_ITERS):
+            state = ls.gls_iteration(state, D, G[:, None], perturbation_moves=PM)
+
+        def call(fn, s):
+            return fn(D, G, s.penalties, s.k, s.tour, s.cost, s.trace, s.work, PM, 3 * PM)
+
+        got_s, want_s = ls.clone_state(state), ls.clone_state(state)
+        kernels.reset_launch_counts()
+        got = call(gls_perturb.perturbation, got_s)
+        require(dict(kernels.launches) == {"gls_perturb": 1},
+                f"perturbation at B={B}: launches {dict(kernels.launches)}")
+        want = call(ls._perturbation, want_s)
+        require(got[2] == want[2], f"perturbation at B={B}: rounds {got[2]} vs {want[2]}")
+        pairs = {"tours": (got[0], want[0]), "costs": (got[1], want[1]),
+                 "penalties": (got_s.penalties, want_s.penalties),
+                 "trace costs": (got_s.trace.costs, want_s.trace.costs),
+                 "trace counts": (got_s.trace.n, want_s.trace.n),
+                 "work": (got_s.work, want_s.work)}
+        for key, (a, b) in pairs.items():
+            require(torch.equal(a, b), f"perturbation at B={B}: {key} differ from the twin's")
+
+        def timed(fn, reps):
+            """Mean ms of fn on fresh copies of the state (the first call a warm-up)."""
+            total = 0.0
+            for r in range(reps + 1):
+                s = ls.clone_state(state)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                call(fn, s)
+                stop.record()
+                torch.cuda.synchronize()
+                total += start.elapsed_time(stop) if r else 0.0
+            return total / reps
+
+        ms, plain = timed(gls_perturb.perturbation, 20), timed(ls._perturbation, 3)
+        moves = int((want_s.trace.n - state.trace.n).sum())
+        ops, nbytes = perturbation_work(want_s.work[:, 1] - state.work[:, 1], n, B)
+        log(f"phase 21 ({card}): perturbation B={B} n={n} pm={PM}: kernel {ms:.4f} ms, the "
+            f"twin {plain:.3f} ms ({plain / ms:.1f}x), {want[2]} lock-step rounds, {moves} "
+            f"moves, all equal")
+        rows.append(row("gls_perturb", "gnngls_tpu_torch/csrc/gls_perturb.cu",
+                        "none: lax.while_loop, gnngls_tpu/search/local_search.py:129",
+                        launches, 0.0, ms, plain, ops, nbytes,
+                        f"B={B} n={n} pm={PM}, a regret-like guide, {PERTURB_WARM_ITERS} "
+                        f"iterations in; launches from phase 14c's 10 s evaluate"))
+    return rows
+
+
 def drive(k4_against) -> int:
     """Every phase in order, then the `kernels` line and the result line."""
     import torch
@@ -2950,7 +3047,7 @@ def drive(k4_against) -> int:
     log("phase 13: done")
     phase14a_per_move_devices(dev)
     per_move = phase14b_against_k1(ds, dev, guide64, init64)
-    phase14c_wall_clock(model, ds, dev)
+    counts14 = phase14c_wall_clock(model, ds, dev)
     phase14d_first_improvement(ds, dev)
     phase14e_protocol(ds, dev)
     phase14f_pt_checkpoint(model, ds, dev)
@@ -2987,6 +3084,7 @@ def drive(k4_against) -> int:
                    card)
     phase19(model, ds, dev, card)
     rows += phase20_construction(dev, card, counts.get("nearest_neighbor", 0))
+    rows += phase21_perturbation(dev, card, counts14.get("gls_perturb", 0))
     bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
     require(not bad, f"imported modules the port must not use: {bad}")
     print(json.dumps({"kernels": rows}), flush=True)

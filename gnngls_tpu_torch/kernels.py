@@ -27,7 +27,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gat_group.cu", "gat_group_mxu.cu", "gat_sorted.cu", "gls_whole.cu", "rank_sums.cu",
-           "nearest_neighbor.cu")
+           "nearest_neighbor.cu", "gls_perturb.cu")
 HEADERS = ("smem.cuh",)
 SMEM_EXCEEDED = 9000  # csrc/smem.cuh's kSmemExceeded: a block's shared memory does not fit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -115,6 +115,13 @@ def library() -> ctypes.CDLL:
     lib.nearest_neighbor_launch.restype = I
     lib.nearest_neighbor_workspace_bytes.argtypes = [I, I]
     lib.nearest_neighbor_workspace_bytes.restype = L
+    lib.gls_perturb_launch.argtypes = [P, L, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P,
+                                       P, I, P, P, P, P, I, I, I, I, I, I, P]
+    lib.gls_perturb_launch.restype = I
+    lib.gls_perturb_max_n.argtypes = [I]
+    lib.gls_perturb_max_n.restype = I
+    lib.gls_perturb_workspace_bytes.argtypes = [I, I]
+    lib.gls_perturb_workspace_bytes.restype = L
     lib.gnngls_cuda_error_string.argtypes = [I]
     lib.gnngls_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -139,25 +139,55 @@ def run_fixed(Ds, guide_stack, init_tours, *, n_iters: int,
     return _per_move_result(state, [t0, t1, t2], moves)
 
 
+# run_wall_clock's first trace rows when it sizes the trace itself (read at
+# each call); the initial local search alone may need more, 20 n.
+TRACE_ROWS = 4096
+
+
+def _moves_bound(n: int, perturbation_moves: int, iters: int) -> int:
+    """The most moves an instance accepts in `iters` outer iterations: a
+    perturbation stops within the round that reaches pm, which accepts at
+    most 4, and the local search at most 2 in each of its 10 n rounds."""
+    return iters * (perturbation_moves + 3 + 20 * n)
+
+
+def _widened(state: ls.GLSState, rows: int) -> ls.GLSState:
+    """The state with `rows` cost rows in its trace, the filled ones kept."""
+    old = state.trace.costs
+    costs = old.new_zeros((old.shape[0], rows))
+    costs[:, :old.shape[1]] = old
+    return state._replace(trace=state.trace._replace(costs=costs))
+
+
 @annotate("gnngls.search")
 def run_wall_clock(Ds, guide_stack, init_tours, *, time_limit_s: float,
                    perturbation_moves: int = 20, chunk_iters: int = 1,
-                   trace_cap: int = 4096, first_improvement: bool = False,
+                   trace_cap: Optional[int] = None, first_improvement: bool = False,
                    device=None) -> BatchResult:
     """Chunks of outer iterations on the per-move engine until the deadline.
 
     One deadline covers the whole batch (all instances search side by side),
     set before the initial local search; the first boundary is stamped after
     it, then one after every chunk until a boundary lies at or past the
-    deadline (kept in the result as `deadline`)."""
+    deadline (kept in the result as `deadline`).
+
+    trace_cap None sizes the trace to the run: it starts at max(TRACE_ROWS,
+    20 n) rows and, before any chunk that could fill it, widens to at least
+    twice its rows, so no move overwrites a row however many the deadline buys.
+    An int fixes the rows; moves past them overwrite the last."""
     dev = resolve_device(device)
     D_t, G_t, T_t = _tensors(dev, Ds, guide_stack, init_tours)
+    n = D_t.shape[1]
+    rows = max(TRACE_ROWS, 20 * n) if trace_cap is None else trace_cap
     deadline = time.time() + time_limit_s
-    state = batch_init(D_t, G_t, T_t, trace_cap, first_improvement, device=dev)
+    state = batch_init(D_t, G_t, T_t, rows, first_improvement, device=dev)
     _sync(dev)
     times = [time.time()]
     moves = [state.trace.n.cpu().numpy().astype(np.int64)]
     while times[-1] < deadline:
+        need = int(moves[-1].max(initial=0)) + _moves_bound(n, perturbation_moves, chunk_iters)
+        if trace_cap is None and need > state.trace.costs.shape[1]:
+            state = _widened(state, max(2 * state.trace.costs.shape[1], need))
         state = batch_chunk(state, D_t, G_t, chunk_iters, perturbation_moves,
                             first_improvement)
         _sync(dev)

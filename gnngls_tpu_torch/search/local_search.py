@@ -30,6 +30,13 @@ min(count, cap - 1), as gnngls_tpu's `_record` does.  Every f32 expression is
 the kernel's (see search/moves.py) and tour costs are its halving-tree sums,
 so with best-improvement the per-move engine, the twin and the kernel give
 the same tours, moves and costs on the same inputs.
+
+On CUDA tensors the per-move engine's perturbation is one launch of
+csrc/gls_perturb.cu for the batch (search/gls_perturb.py): each instance runs
+its own rounds, none syncs, and the state still counts the rounds the lock
+step would have run, the largest of the instances' own.  `_perturbation` is
+its plain twin, and `gls_fixed_plain`, the whole-GLS kernel's twin, runs it
+on every device.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.profiling import annotate
+from . import gls_perturb
 from . import moves as mv
 
 
@@ -180,6 +188,16 @@ def _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improv
     return t, cost, rounds
 
 
+def _perturb(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improvement=False):
+    """The per-move engine's perturbation: CUDA tensors take one launch of
+    csrc/gls_perturb.cu for the batch, CPU tensors the twin `_perturbation`;
+    the same bits either way."""
+    if D.device.type == "cuda":
+        return gls_perturb.perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters,
+                                        first_improvement)
+    return _perturbation(D, Gm, P, k, t, cost, trace, work, pm, max_iters, first_improvement)
+
+
 def penalty_scale(cost: torch.Tensor, n: int) -> torch.Tensor:
     """k = 0.1 * cost / n in f32, rounded as the kernel rounds it."""
     return (torch.full_like(cost, 0.1) * cost) / torch.full_like(cost, float(n))
@@ -205,7 +223,6 @@ def gls_init(D: torch.Tensor, init_tours: torch.Tensor, *, trace_cap: Optional[i
     return GLSState(t, cost, t, cost, torch.zeros_like(D), k, 0, trace, work, (rounds, 0))
 
 
-@annotate("gnngls.search.iteration")
 def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
                   perturbation_moves: int, max_pert_iters: int = 0, max_ls_iters: int = 0,
                   first_improvement: bool = False) -> GLSState:
@@ -213,14 +230,22 @@ def gls_iteration(state: GLSState, D: torch.Tensor, guides: torch.Tensor, *,
     true weights, keep a strictly better tour.  Updates the state's
     penalties, trace and work in place.  guides (B, G, n, n).  The
     perturbation runs at most max_pert_iters rounds (0: 3 pm), the local
-    search at most max_ls_iters (0: 10 n)."""
+    search at most max_ls_iters (0: 10 n).  On CUDA the perturbation is one
+    kernel launch (`_perturb`)."""
+    return _iteration(state, D, guides, _perturb, perturbation_moves, max_pert_iters,
+                      max_ls_iters, first_improvement)
+
+
+@annotate("gnngls.search.iteration")
+def _iteration(state, D, guides, perturb, perturbation_moves, max_pert_iters=0,
+               max_ls_iters=0, first_improvement=False):
     if max_pert_iters <= 0:
         max_pert_iters = 3 * perturbation_moves
     guide = guides[:, state.iter_i % guides.shape[1]]
     with annotate("gnngls.search.perturb"):
-        t, cost, p_rounds = _perturbation(D, guide, state.penalties, state.k, state.tour,
-                                          state.cost, state.trace, state.work,
-                                          perturbation_moves, max_pert_iters, first_improvement)
+        t, cost, p_rounds = perturb(D, guide, state.penalties, state.k, state.tour, state.cost,
+                                    state.trace, state.work, perturbation_moves,
+                                    max_pert_iters, first_improvement)
     with annotate("gnngls.search.ls"):
         t, cost, _, ls_rounds = local_search(t, cost, D, state.trace, max_ls_iters,
                                              first_improvement, state.work)
@@ -261,8 +286,8 @@ def gls_fixed_plain(Ds: torch.Tensor, guides: torch.Tensor,
     state = gls_init(Ds, init_tours, trace_cap=None, k=k)
     tr_c = torch.zeros((B, n_iters), dtype=torch.float32, device=Ds.device)
     tr_m = torch.zeros((B, n_iters), dtype=torch.int32, device=Ds.device)
-    for it in range(n_iters):
-        state = gls_iteration(state, Ds, guides, perturbation_moves=perturbation_moves)
+    for it in range(n_iters):  # the twin's perturbation on every device, as K1's twin
+        state = _iteration(state, Ds, guides, _perturbation, perturbation_moves)
         tr_c[:, it] = state.best_cost
         tr_m[:, it] = state.trace.n
     return GLSOutput(state.best_tour.to(torch.int32), state.best_cost, state.trace.n,

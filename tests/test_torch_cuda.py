@@ -14,7 +14,7 @@ import torch
 
 from gnngls_tpu_torch import kernels
 from gnngls_tpu_torch.core.graph import build_topology
-from gnngls_tpu_torch.data.generate import coords_to_distance_matrix
+from gnngls_tpu_torch.data.generate import coords_to_distance_matrix, coords_to_distance_tensor
 from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partials_chunked,
                                             gat_group_partials_chunked_plain,
                                             gat_group_partials_mxu,
@@ -23,8 +23,10 @@ from gnngls_tpu_torch.ops.gat_group import (gat_group_partials, gat_group_partia
 from gnngls_tpu_torch.ops.gat_group import merge_group_partials
 from gnngls_tpu_torch.ops.gat_group_sep import gat_sep_partials, gat_sep_partials_plain
 from gnngls_tpu_torch.ops.gat_sorted import gat_sorted_partials, gat_sorted_partials_plain
-from gnngls_tpu_torch.search.batched import run_fixed
+from gnngls_tpu_torch.search.batched import run_fixed, run_wall_clock
+from gnngls_tpu_torch.search import gls_perturb
 from gnngls_tpu_torch.search import gls_whole as gls_whole_module
+from gnngls_tpu_torch.search import local_search as tls
 from gnngls_tpu_torch.search.construct import nearest_neighbor_batch
 from gnngls_tpu_torch.search.gls_whole import gls_whole
 from gnngls_tpu_torch.search.gls_whole import max_n as gls_whole_max_n
@@ -395,18 +397,144 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
         gls_whole(D, D, torch.zeros((1, n + 1), dtype=torch.int32, device=cuda), n_iters=1)
 
 
+def _state_arrays(state):
+    """Every field of a GLSState, tensors on the host."""
+    out = {}
+    for key, v in state._asdict().items():
+        if key == "trace":
+            out["trace.costs"] = None if v.costs is None else v.costs.cpu()
+            out["trace.n"] = v.n.cpu()
+        else:
+            out[key] = v.cpu() if torch.is_tensor(v) else v
+    return out
+
+
+@pytest.mark.parametrize("variant", ["default", "ties_cap7", "count_only_k"])
 @pytest.mark.parametrize("n,B,iters,pm,G,first_improvement", [
     (20, 8, 5, 8, 1, False), (20, 8, 5, 8, 2, True), (50, 4, 5, 8, 2, False),
-    (50, 4, 5, 8, 1, True)])
+    (50, 4, 5, 8, 1, True), (100, 64, 3, 20, 1, False), (100, 16, 3, 20, 2, True),
+    (139, 4, 2, 20, 1, False), (500, 2, 2, 20, 1, False)])
 def test_per_move_engine_on_the_card_matches_the_cpu(cuda, n, B, iters, pm, G,
-                                                     first_improvement):
-    """The per-move engine is tensor code: on CUDA tensors it gives the CPU's bits."""
+                                                     first_improvement, variant):
+    """On CUDA tensors the per-move engine's perturbation is one launch of
+    csrc/gls_perturb.cu an outer iteration, and the engine gives the CPU's
+    bits: every field of the state, the lock-step rounds included.  Variants:
+    "default" (4096 trace rows, also through run_fixed); "ties_cap7"
+    (integer-valued guides, so that utilities tie, and a trace of 7 rows that
+    saturates); "count_only_k" (a trace that counts moves only, and a given
+    k per instance)."""
     Dt, Gt, T = _gls_case(n, B, G, 3 * n + G, cuda)
-    kw = dict(n_iters=iters, perturbation_moves=pm, first_improvement=first_improvement)
+    cap, k = 4096, None
+    if variant == "ties_cap7":
+        Gt, cap = torch.floor(4 * Gt), 7
+    elif variant == "count_only_k":
+        cap, k = None, 0.02 * torch.arange(1, B + 1, dtype=torch.float32)
+
+    def search(dev):
+        s = tls.gls_init(Dt.to(dev), T.to(dev), trace_cap=cap,
+                         k=None if k is None else k.to(dev),
+                         first_improvement=first_improvement)
+        for _ in range(iters):
+            s = tls.gls_iteration(s, Dt.to(dev), Gt.to(dev), perturbation_moves=pm,
+                                  first_improvement=first_improvement)
+        return s
+
+    before = kernels.launches["gls_perturb"]
+    got = _state_arrays(search(cuda))
+    assert kernels.launches["gls_perturb"] == before + iters
+    want = _state_arrays(search("cpu"))
+    assert got.keys() == want.keys()
+    for key, a in got.items():
+        b = want[key]
+        if torch.is_tensor(b):
+            assert torch.equal(a, b), key
+        else:
+            assert a == b, key
+    if variant == "default":
+        kw = dict(n_iters=iters, perturbation_moves=pm, first_improvement=first_improvement)
+        got = run_fixed(Dt, Gt, T, device=cuda, **kw)
+        want = run_fixed(Dt.cpu(), Gt.cpu(), T.cpu(), device="cpu", **kw)
+        for key in ("trace_n", "chunk_moves", "best_tours", "trace_costs", "best_costs", "work",
+                    "rounds"):
+            np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+
+
+def _never_the_twin(*a, **kw):
+    raise AssertionError("the per-move engine ran the twin's rounds on the card")
+
+
+def test_wall_clock_on_the_card_launches_one_perturbation_an_iteration(cuda, monkeypatch):
+    """run_wall_clock's chunks are one outer iteration each: one launch of
+    the perturbation kernel per chunk, and none of the twin's rounds."""
+    Dt, Gt, T = _gls_case(100, 32, 1, 11, cuda)
+
+    monkeypatch.setattr(tls, "_perturbation", _never_the_twin)
+    kernels.reset_launch_counts()
+    res = run_wall_clock(Dt, Gt, T, time_limit_s=1.0, device=cuda)
+    iters = len(res.chunk_times) - 1
+    assert iters >= 1 and dict(kernels.launches) == {"gls_perturb": iters}
+
+
+def test_perturbation_global_layout_matches_shared(cuda, monkeypatch):
+    """Past max_n() the wrapper keeps the tour state in a global workspace;
+    the two layouts differ only in addresses: the same bits, one launch an
+    outer iteration either way, and the twin's rounds never run."""
+    Dt, Gt, T = _gls_case(60, 4, 1, 7, cuda)
+    kw = dict(n_iters=3, perturbation_moves=10)
+    before = kernels.launches["gls_perturb"]
+    want = run_fixed(Dt, Gt, T, device=cuda, **kw)
+    whole = gls_perturb.max_n(global_layout=True)
+    monkeypatch.setattr(gls_perturb, "max_n",
+                        lambda global_layout=False: whole if global_layout else 59)
+    monkeypatch.setattr(tls, "_perturbation", _never_the_twin)
     got = run_fixed(Dt, Gt, T, device=cuda, **kw)
-    want = run_fixed(Dt.cpu(), Gt.cpu(), T.cpu(), device="cpu", **kw)
-    for key in ("trace_n", "chunk_moves", "best_tours", "trace_costs", "best_costs", "work"):
+    assert kernels.launches["gls_perturb"] == before + 6
+    for key in ("trace_n", "best_tours", "trace_costs", "best_costs", "work", "rounds"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
+
+
+def test_perturbation_past_the_shared_layout_matches_the_twin(cuda):
+    """At n = max_n() + 1, where only the global layout holds the tour
+    state, one phase from a poor tour equals the twin's bit for bit."""
+    n = gls_perturb.max_n() + 1
+    rng = np.random.default_rng(14496)
+    D = coords_to_distance_tensor(rng.random((1, n, 2)).astype(np.float32), cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    R = torch.rand((1, n, n), generator=g, device=cuda)
+    G = R + R.transpose(1, 2)
+    del R
+    t = torch.cat([torch.arange(n), torch.zeros(1, dtype=torch.long)])[None].to(cuda)
+    cost = D[0, t[0, :-1], t[0, 1:]].sum()[None]
+    k = tls.penalty_scale(cost, n)
+    outs = []
+    for fn in (gls_perturb.perturbation, tls._perturbation):
+        P = torch.zeros_like(D)
+        trace = tls.make_trace(1, 16, cuda)
+        work = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+        tours, costs, rounds = fn(D, G, P, k, t, cost, trace, work, 3, 9)
+        outs.append((tours, costs, P, trace.costs, trace.n, work, rounds))
+        del P
+    for key, a, b in zip(("tours", "costs", "penalties", "trace costs", "trace counts",
+                          "work", "rounds"), *outs):
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), key
+    assert int(outs[0][4][0]) >= 3
+
+
+def test_perturbation_wrapper_refuses_bad_cuda_inputs(cuda):
+    Dt, Gt, T = _gls_case(12, 2, 1, 5, cuda)
+    s = tls.gls_init(Dt, T)
+    args = (Dt, Gt[:, 0], s.penalties, s.k, s.tour, s.cost, s.trace, s.work, 4, 12)
+    with pytest.raises(TypeError):
+        gls_perturb.perturbation(Dt.double(), *args[1:])
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        gls_perturb.perturbation(*args[:3], s.k.cpu(), *args[4:])
+    n = gls_perturb.max_n(global_layout=True) + 1
+    Z = torch.zeros((1, 1, 1), device=cuda).expand(1, n, n)  # no memory behind it
+    big = tls.make_trace(1, 4, cuda)
+    with pytest.raises(ValueError, match="range"):
+        gls_perturb.perturbation(Z, Z, Z, s.k[:1], torch.zeros((1, n + 1), dtype=torch.long,
+                                                               device=cuda), s.cost[:1], big,
+                                 s.work[:1], 4, 12)
 
 
 @pytest.mark.parametrize("n,B,iters,pm,G", [(50, 8, 10, 10, 2), (100, 8, 10, 20, 1),

@@ -223,6 +223,36 @@ def test_run_wall_clock_matches_run_fixed():
     np.testing.assert_array_equal(res.chunk_moves[:, [0, -1]], fixed.chunk_moves)
 
 
+def test_run_wall_clock_widens_its_trace(monkeypatch):
+    """Sized to the run (trace_cap None), the trace widens before a chunk
+    could fill it: no move overwrites a row, and the rows are those of a
+    fixed run over as many iterations with room for every move."""
+    monkeypatch.setattr(tbatched, "TRACE_ROWS", 1)  # start at the initial search's 20 n
+    Ds, stack, inits = case(1, seed=5)
+    res = tbatched.run_wall_clock(Ds, stack, inits, time_limit_s=0.3, perturbation_moves=PM,
+                                  device="cpu")
+    rows = res.trace_costs.shape[1]
+    assert rows >= 40 * N and (res.trace_n <= rows).all()
+    fixed = tbatched.run_fixed(Ds, stack, inits, n_iters=len(res.chunk_times) - 1,
+                               perturbation_moves=PM, trace_cap=rows, device="cpu")
+    for key in ("best_tours", "best_costs", "trace_costs", "trace_n", "work"):
+        np.testing.assert_array_equal(getattr(res, key), getattr(fixed, key), err_msg=key)
+
+
+def test_evaluate_default_deadline_keeps_every_move():
+    """The CLI's default run (the 10 s deadline) keeps a trace row for every
+    accepted move: the progress rows are whole and nothing warns."""
+    ds = _tiny()
+    out = tev.evaluate(ds, guides=["weight"], device="cpu")
+    res = out["result"]
+    assert out["engine"] == "xla" and res.chunk_times[-1] - res.chunk_times[0] >= 9.0
+    assert (res.trace_n <= res.trace_costs.shape[1]).all()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        rows = tev.search_progress_records(ds, out)
+    assert len(rows) == int(res.trace_n.sum()) > 0
+
+
 def _tiny(k=2):
     root = ROOT / "data" / "tsp10"
     ds = tds.TSPDataset.from_npz(root / "instances.npz", root / "test.txt",
